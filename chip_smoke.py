@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch / CUDA port: builds the CUDA kernels,
-holds each against its plain PyTorch version on the GPU, and drives the
-flagship encode + 50-step decode path at full width on seeded random
-weights.
+holds each against its plain PyTorch version on the GPU, and drives, at full
+width on seeded random weights, the flagship encode + 50-step bf16 decode,
+the int8 decode (``decode_dtype='int8'``, through ``q8_matmul``) and the
+one-step renderer in bf16 and int8. Each path runs with every launch count
+set to 0 just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -14,12 +16,13 @@ last line of its standard output is one JSON object
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
 ``--only kernels`` stops after the kernel phase; ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
-torch.profiler pass over one warm decode.
+torch.profiler pass over one warm bf16 decode and one warm int8 decode.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -31,12 +34,30 @@ import torch
 # published peaks of one H100 SXM (dense): the roofline the bounds are stated against
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# q8_matmul equals its plain version bit for bit, except fp32 with a bias:
+# there the plain version takes the kernel's fused multiply-add in float64,
+# which rounds twice when the float64 sum lands on an fp32 tie, so one fp32
+# ulp is allowed (relative 2^-23)
+Q8_FP32_BIAS_RTOL = 2.0 ** -23
+# conv3ch_3x3: fp32 sums of 27 products in another order (1e-5, the TPU
+# kernel's own test); bf16 output may round to the neighbouring value (one
+# bf16 ulp, relative 2^-7)
+CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-6)}
 VQ_MARGIN = 1e-6          # ids may differ from the plain version only below this top-2 margin
 DEFAULT_TIER_MARGIN = 0.05  # bf16 trunk: kernel and plain ids may differ only below this margin
 LATENT_TOL = 5e-2         # bf16 decode, kernels against forced plain versions
+# int8 renderer, kernels against forced plain versions, relative to the latent
+# scale: the attention kernel and plain attention round bf16 at other places,
+# and the per-row activation quantizer of the next int8 linear turns some of
+# those ulps into a step of one level (max|x| / 127), in one pass that no
+# sampler averages. The rule tests/test_torch_renderer.py holds the int8
+# renderer to against JAX: all but one value in a thousand within 3e-2 of the
+# scale, none beyond 6e-2.
+RENDER_INT8_TOL = (3e-2, 6e-2)
 
 
 def log(msg):
@@ -116,6 +137,9 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed):
     elif mask_kind == "random":
         mask = torch.rand((B, Lk), generator=gen, device=dev) > 0.5
         mask[:, 0] = True
+    elif mask_kind == "ones":
+        # the renderer's masks: its pipeline masks no token
+        mask = torch.ones((B, Lk), dtype=torch.bool, device=dev)
     elif mask_kind == "full_row":
         mask = torch.rand((B, Lk), generator=gen, device=dev) > 0.5
         mask[0, :] = False            # batch 0: every key masked -> uniform mean
@@ -206,8 +230,131 @@ def vq_case(vk, name, N, C, gen, timed, kind="random"):
     return rec
 
 
+def q8_bound(M, K, N, x_item):
+    t_ops = 2.0 * M * K * N / PEAK_INT8_OPS
+    t_bytes = (M * K * x_item + K * N + 6 * N + M * N * x_item) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def q8_case(q8, name, M, K, N, xdt, bdt, gen, timed, edge=False):
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    x = torch.randn((M, K), generator=gen, device=dev)
+    if edge:
+        x[0] = 0.0                    # all-zero row: output = bias
+        x[1] *= 1e-3
+        x[1, K // 2] = 300.0          # one large value: the rest of the row quantizes to 0
+    x = x.to(xdt)
+    # the decode quantizes bf16-rounded weights
+    w = (torch.randn((N, K), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    wq, sw = q8.quantize_weight(w)
+    b = None if bdt is None else (torch.randn((N,), generator=gen, device=dev) * 0.02).to(bdt)
+    before = q8.launch_count
+    out = q8.q8_matmul(x, wq, sw, b)
+    torch.cuda.synchronize()
+    if q8.launch_count != before + 1:
+        raise RuntimeError(f"{name}: the wrapper did not count its launch")
+    ref = q8.q8_matmul_plain(x, wq, sw, b)
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise RuntimeError(f"{name}: shape or type differs from the plain version")
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    n_diff = int((diff > 0).sum())
+    if xdt == torch.float32 and b is not None:
+        if bool((diff > Q8_FP32_BIAS_RTOL * ref.float().abs()).any()):
+            raise RuntimeError(f"{name}: kernel differs from the plain version by more than one fp32 ulp")
+    elif n_diff:
+        raise RuntimeError(f"{name}: {n_diff} values differ from the plain version (max {err})")
+    if edge and not torch.equal(out[0], b.to(xdt)):
+        raise RuntimeError(f"{name}: an all-zero row must give the bias")
+    rec = {"case": name, "shape": [M, K, N], "dtype": str(xdt).replace("torch.", ""),
+           "bias": None if bdt is None else str(bdt).replace("torch.", ""),
+           "max_abs_err": err, "values_differing": n_diff}
+    if timed:
+        bound, by = q8_bound(M, K, N, x.element_size())
+        xf = x.float()
+        sx = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True) * q8.INV127, 1e-8)
+        xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+        try:   # the product alone on pre-quantized operands: no quantization, no dequantization
+            library_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
+        except RuntimeError as e:
+            log(f"    torch._int_mm refused {name}: {str(e).splitlines()[0]}")
+            library_ms = None
+        wd, bd = w.to(xdt), None if b is None else b.to(xdt)
+        rec.update(
+            ms=time_ms(lambda: q8.q8_matmul(x, wq, sw, b)),
+            host_paced_ms=time_ms(lambda: q8.q8_matmul(x, wq, sw, b), hold=False),
+            plain_ms=time_ms(lambda: q8.q8_matmul_plain(x, wq, sw, b), reps=3, rounds=3),
+            library_ms=library_ms,
+            bound_ms=bound, bound_by=by)
+        # the dense call the int8 path replaces: F.linear in x's type, unquantized weight
+        rec[f"{rec['dtype'].replace('float32', 'fp32').replace('bfloat16', 'bf16')}_ms"] = \
+            time_ms(lambda: F.linear(x, wd, bd))
+    log(f"  q8_matmul {name}: {json.dumps(rec)}")
+    return rec
+
+
+def conv_bound(B, H, W, C, dtype):
+    item = 2 if dtype == torch.bfloat16 else 4
+    flops = 2.0 * B * H * W * 27 * C
+    nbytes = B * H * W * 3 * item + 28 * C * 4 + B * H * W * C * item
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_case(c3, name, B, H, W, C, dtype, gen, timed):
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    x = torch.randn((B, H, W, 3), generator=gen, device=dev).to(dtype)
+    w = torch.randn((C, 3, 3, 3), generator=gen, device=dev) * 0.2
+    b = torch.randn((C,), generator=gen, device=dev) * 0.1
+    before = c3.launch_count
+    out = c3.conv3ch_3x3(x, w, b)
+    torch.cuda.synchronize()
+    if c3.launch_count != before + 1:
+        raise RuntimeError(f"{name}: the wrapper did not count its launch")
+    ref = c3.conv3ch_3x3_plain(x, w, b)
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise RuntimeError(f"{name}: shape or type differs from the plain version")
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    rtol, atol = CONV_TOL[dtype]
+    if bool((diff > atol + rtol * ref.float().abs()).any()):
+        raise RuntimeError(f"{name}: kernel differs from the plain version by {err} "
+                           f"(rtol {rtol}, atol {atol})")
+    rec = {"case": name, "shape": [B, H, W, 3, C], "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "rtol": rtol, "atol": atol}
+    if timed:
+        bound, by = conv_bound(B, H, W, C, dtype)
+        xc = x.permute(0, 3, 1, 2)            # NCHW view of NHWC memory: channels_last
+        wl = w.to(dtype).contiguous(memory_format=torch.channels_last)
+        bl = b.to(dtype)
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False   # the same function: fp32 stays fp32
+        try:
+            library_ms = time_ms(lambda: F.conv2d(xc, wl, bl, padding=1))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        rec.update(
+            ms=time_ms(lambda: c3.conv3ch_3x3(x, w, b)),
+            host_paced_ms=time_ms(lambda: c3.conv3ch_3x3(x, w, b), hold=False),
+            plain_ms=time_ms(lambda: c3.conv3ch_3x3_plain(x, w, b), reps=3, rounds=3),
+            library_ms=library_ms, bound_ms=bound, bound_by=by)
+    log(f"  conv3ch_3x3 {name}: {json.dumps(rec)}")
+    return rec
+
+
 def kernel_phase():
+    from selftoktokenizer_tpu_torch.ops import conv3ch as c3
     from selftoktokenizer_tpu_torch.ops import flash_attention as fa
+    from selftoktokenizer_tpu_torch.ops import q8_matmul as q8
     from selftoktokenizer_tpu_torch.ops import vq_kernels as vk
 
     gen = torch.Generator(device="cuda")
@@ -218,6 +365,9 @@ def kernel_phase():
         ("decode_joint_bf16_masked", 2, 24, 768, 768, 64, bf, "prefix", True),
         ("encoder_query_bf16", 8, 8, 512, 768, 64, bf, None, True),
         ("decode_uncond_bf16", 2, 24, 256, 256, 64, bf, None, True),
+        # the renderer at batch 8: context rows over the context keys, x rows over all
+        ("renderer_context_bf16", 8, 24, 512, 512, 64, bf, "ones", True),
+        ("renderer_x_bf16", 8, 24, 256, 768, 64, bf, "ones", True),
         ("decode_joint_fp32_masked", 2, 24, 768, 768, 64, f32, "prefix", True),
         ("ragged_bf16", 2, 3, 200, 333, 64, bf, "random", False),
         ("ragged_fp32", 2, 3, 200, 333, 64, f32, "random", False),
@@ -235,14 +385,40 @@ def kernel_phase():
         ("duplicate_codes", 777, 3 * 1024, False, "duplicates"),
     ]
     vq_recs = [vq_case(vk, n, N, C, gen, timed, kind) for n, N, C, timed, kind in vq]
-    return attn_recs, vq_recs
+    q8_cases = [
+        # (name, M, K, N, x type, bias type, timed, edge rows): the int8
+        # decode's shapes first (batch 2: x stream M = 512, context M = 2*Lc
+        # <= 1024), then the renderer's (batch 8: x stream M = 2048, context
+        # M = 4096, its context embedder in fp32)
+        ("x_qkv", 512, 1536, 4608, bf, bf, True, False),
+        ("x_fc2", 512, 6144, 1536, bf, bf, True, False),
+        ("context_fc1", 1024, 1536, 6144, bf, bf, True, False),
+        ("context_embedder", 1024, 16, 1536, bf, bf, True, False),
+        ("final_layer_linear", 512, 1536, 64, bf, bf, True, False),
+        ("renderer_context_embedder_fp32", 4096, 16, 1536, f32, bf, True, False),
+        ("renderer_x_qkv", 2048, 1536, 4608, bf, bf, True, False),
+        ("renderer_context_fc2", 4096, 6144, 1536, bf, bf, True, False),
+        ("ragged_edge_rows_bf16", 300, 200, 500, bf, bf, False, True),
+        ("ragged_edge_rows_fp32", 300, 200, 500, f32, f32, False, True),
+        ("unaligned_k_no_bias", 33, 37, 70, bf, None, False, False),
+    ]
+    q8_recs = [q8_case(q8, *c[:6], gen, c[6], c[7]) for c in q8_cases]
+    conv_cases = [
+        # the VAE encoder's conv_in at batch 8 (not wired: no path runs it)
+        ("vae_conv_in_bf16", 8, 256, 256, 128, bf, True),
+        ("vae_conv_in_fp32", 8, 256, 256, 128, f32, True),
+        ("ragged_bf16", 2, 37, 29, 20, bf, False),
+        ("ragged_fp32", 2, 37, 29, 20, f32, False),
+    ]
+    conv_recs = [conv_case(c3, *c[:6], gen, c[6]) for c in conv_cases]
+    return attn_recs, vq_recs, q8_recs, conv_recs
 
 
 # ------------------------------------------------------------- main path ---
 
-def profile_decode(pipe, ids, noise, warm_s):
-    """Device time by kernel over one warm bf16 decode (torch.profiler), and
-    the device's busy share of the un-profiled warm wall time."""
+def profile_decode(pipe, ids, noise, warm_s, label):
+    """Device time by kernel over one warm decode (torch.profiler), and the
+    device's busy share of the un-profiled warm wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,35 +436,99 @@ def profile_decode(pipe, ids, noise, warm_s):
     if total <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     rows.sort(reverse=True)
-    log(f"  profile of one warm decode (batch {ids.shape[0]}, 50 steps): device busy "
+    log(f"  profile of one warm {label} decode (batch {ids.shape[0]}, 50 steps): device busy "
         f"{total / 1e6:.3f} s of {warm_s:.3f} s wall = {total / 1e6 / warm_s:.3f}; "
         f"{sum(r[1] for r in rows)} device kernels")
     for us, n, key in rows[:12]:
         log(f"    {us / 1e3:9.2f} ms {us / total:6.3f} x{n:<6d} {key[:110]}")
 
 
-def main_path_phase(card, do_profile=False):
-    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
-    from selftoktokenizer_tpu_torch.ops import flash_attention as fa
-    from selftoktokenizer_tpu_torch.ops import vq_kernels as vk
-    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+KERNEL_NAMES = ("vq_argmax", "flash_sdpa_key_mask", "q8_matmul", "conv3ch_3x3")
 
-    cfg = load_config(FLAGSHIP_CONFIG)
-    t0 = time.time()
-    # non-zero adaLN and biases: the reference init zeroes every attention gate,
-    # which would hide a wrong attention kernel from every end-to-end check
-    pipe = SelftokPipeline(cfg, datasize=256, steps=50, decode_dtype=torch.bfloat16,
-                           encode_precision="highest", seed=0, zero_init_std=0.02)
+
+def _modules():
+    from selftoktokenizer_tpu_torch.ops import conv3ch as c3
+    from selftoktokenizer_tpu_torch.ops import flash_attention as fa
+    from selftoktokenizer_tpu_torch.ops import q8_matmul as q8
+    from selftoktokenizer_tpu_torch.ops import vq_kernels as vk
+    return vk, fa, q8, c3
+
+
+def counts():
+    return tuple(m.launch_count for m in _modules())
+
+
+def reset_counts():
+    for m in _modules():
+        m.launch_count = 0
+
+
+def timed(fn):
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (pipe.encoder, pipe.model, pipe.vae)
-                   for p in m.parameters())
-    log(f"  pipeline built in {time.time() - t0:.1f} s: {n_params / 1e9:.2f} B parameters, "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def warm(fn, n):
+    ts = sorted(timed(fn)[1] for _ in range(n))
+    return ts[len(ts) // 2]
+
+
+def check_images(img, b):
+    if tuple(img.shape) != (b, 256, 256, 3) or not torch.isfinite(img).all() \
+            or float(img.min()) < 0 or float(img.max()) > 1:
+        raise RuntimeError(f"bad images: {tuple(img.shape)}")
+
+
+def psnr(a, b):
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+def release():
+    """Give back the device memory of a pipeline the caller has deleted."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_decoder_widths(pipe, renderer=False):
     enc_cfg, dec_cfg = pipe.tcfg.encoder, pipe.tcfg.decoder
     widths = (enc_cfg.depth, enc_cfg.query_dim, enc_cfg.K, enc_cfg.codebook_size,
-              dec_cfg.depth, dec_cfg.hidden_size, dec_cfg.num_heads)
-    if widths != (16, 512, 512, 32768, 24, 1536, 24):
+              dec_cfg.depth, dec_cfg.hidden_size, dec_cfg.num_heads, dec_cfg.renderer)
+    if widths != (16, 512, 512, 32768, 24, 1536, 24, renderer):
         raise RuntimeError(f"not the flagship widths: {widths}")
+
+
+def build_pipeline(cfg_path, decode_dtype):
+    from selftoktokenizer_tpu_torch.core.config import load_config
+    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    # non-zero adaLN and biases: the reference init zeroes every attention gate,
+    # which would hide a wrong attention kernel from every end-to-end check;
+    # one seed, so every pipeline of the run holds the same weights
+    pipe = SelftokPipeline(load_config(cfg_path), datasize=256, steps=50,
+                           decode_dtype=decode_dtype, encode_precision="highest", seed=0,
+                           zero_init_std=0.02)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.encoder, pipe.model, pipe.vae)
+                   for p in list(m.parameters()) + list(m.buffers()))
+    log(f"  pipeline {cfg_path.rsplit('/', 1)[-1]} {decode_dtype} built in "
+        f"{time.time() - t0:.1f} s: {n_params / 1e9:.2f} B weights, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
+    return pipe
+
+
+def bf16_path(card, do_profile):
+    """The serving path: flagship encode at both tiers and the bf16 decode."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG
+
+    pipe = build_pipeline(FLAGSHIP_CONFIG, torch.bfloat16)
+    check_decoder_widths(pipe)
+    enc_cfg, dec_cfg = pipe.tcfg.encoder, pipe.tcfg.decoder
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -297,49 +537,32 @@ def main_path_phase(card, do_profile=False):
     noise1 = noise2[:1].clone()
     B, K, depth, steps = 8, 512, dec_cfg.depth, 50
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t
-
-    def counts():
-        return vk.launch_count, fa.launch_count
-
     def check_ids(ids, b):
         if ids.dtype != torch.int32 or tuple(ids.shape) != (b, K) \
                 or int(ids.min()) < 0 or int(ids.max()) >= 32768:
             raise RuntimeError(f"bad token ids: {ids.dtype} {tuple(ids.shape)}")
 
-    def check_images(img, b):
-        if tuple(img.shape) != (b, 256, 256, 3) or not torch.isfinite(img).all() \
-                or float(img.min()) < 0 or float(img.max()) > 1:
-            raise RuntimeError(f"bad images: {tuple(img.shape)}")
-
     # warm-up outside the counted run (cuDNN autotune, cuBLAS handles)
     pipe.encoding(images[:1])
 
     # ---- the counted run: every count set to 0 just before, read just after
-    vk.launch_count = 0
-    fa.launch_count = 0
+    reset_counts()
     ids_hi, t_hi = timed(lambda: pipe.encoding(images))
     c1 = counts()
     ids_def, t_def = timed(lambda: pipe.encoding(images, precision="default"))
     c2 = counts()
     (img2, lat2), t_dec = timed(lambda: pipe.decoding(
         ids_hi[:2], noise=noise2, cfg_scale=1.0, return_latents=True))
-    c3 = counts()
+    c3_ = counts()
     (img1, lat1), t_cfg = timed(lambda: pipe.decoding(
         ids_hi[:1], noise=noise1, cfg_scale=2.0, return_latents=True))
     c4 = counts()
-    launches = {"vq_argmax": c4[0], "flash_sdpa_key_mask": c4[1]}
 
-    expect = [(1, 0), (2, enc_cfg.depth), (2, enc_cfg.depth + depth * steps),
-              (2, enc_cfg.depth + 3 * depth * steps)]
-    if [c1, c2, c3, c4] != expect:
-        raise RuntimeError(f"launch counts {[c1, c2, c3, c4]} differ from the path's {expect}")
-    log(f"  launches on the main path: {json.dumps(launches)}")
+    expect = [(1, 0, 0, 0), (2, enc_cfg.depth, 0, 0),
+              (2, enc_cfg.depth + depth * steps, 0, 0),
+              (2, enc_cfg.depth + 3 * depth * steps, 0, 0)]
+    if [c1, c2, c3_, c4] != expect:
+        raise RuntimeError(f"launch counts {[c1, c2, c3_, c4]} differ from the path's {expect}")
     check_ids(ids_hi, B)
     check_ids(ids_def, B)
     check_images(img2, 2)
@@ -384,10 +607,6 @@ def main_path_phase(card, do_profile=False):
         raise RuntimeError(f"decode latents differ from the plain path by {max(e1, e2)} > {LATENT_TOL}")
 
     # the counted calls above were each path's first; time warm repeats too
-    def warm(fn, n):
-        ts = sorted(timed(fn)[1] for _ in range(n))
-        return ts[len(ts) // 2]
-
     w_hi = warm(lambda: pipe.encoding(images), 3)
     w_def = warm(lambda: pipe.encoding(images, precision="default"), 3)
     w_dec = warm(lambda: pipe.decoding(ids_hi[:2], noise=noise2, cfg_scale=1.0), 2)
@@ -401,8 +620,144 @@ def main_path_phase(card, do_profile=False):
     log(f"decode bf16, 50 steps, cfg 2.0: {w_cfg:.3f} s/image (batch 1, warm; "
         f"{t_cfg:.3f} s first call) on {card}")
     if do_profile:
-        profile_decode(pipe, ids_hi[:2], noise2, w_dec)
-    return launches
+        profile_decode(pipe, ids_hi[:2], noise2, w_dec, "bf16")
+    ref = {"ids": ids_hi, "images": images, "noise2": noise2, "noise1": noise1,
+           "lat2": lat2, "lat1": lat1, "img2": img2, "img1": img1}
+    del pipe
+    release()
+    return c4, ref
+
+
+def int8_path(card, ref, do_profile):
+    """The int8 decode: the same seeded weights, cast to bf16 and quantized."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG
+    from selftoktokenizer_tpu_torch.ops import q8_matmul as q8
+
+    pipe = build_pipeline(FLAGSHIP_CONFIG, "int8")
+    check_decoder_widths(pipe)
+    depth, steps = pipe.tcfg.decoder.depth, 50
+    ids, noise2, noise1 = ref["ids"], ref["noise2"], ref["noise1"]
+    n_q8 = sum(isinstance(m, q8.Q8Linear) for m in pipe.model.modules())
+    per_cond = 8 * (depth - 1) + 5 + 2      # blocks, last block, context embedder, final linear
+    per_uncond = 4 * depth + 1              # x blocks only, final linear
+    if n_q8 != per_cond:
+        raise RuntimeError(f"{n_q8} quantized linears, expected {per_cond}")
+    if not torch.equal(pipe.encoding(ref["images"]), ids):
+        raise RuntimeError("the int8 pipeline's encoder does not hold the same seeded weights")
+
+    reset_counts()
+    (img2, lat2), t_dec = timed(lambda: pipe.decoding(
+        ids[:2], noise=noise2, cfg_scale=1.0, return_latents=True))
+    c1 = counts()
+    (img1, lat1), t_cfg = timed(lambda: pipe.decoding(
+        ids[:1], noise=noise1, cfg_scale=2.0, return_latents=True))
+    c2 = counts()
+    # counts accumulate over both calls: cfg 2.0 adds a cond and an uncond pass per step
+    expect = [(0, depth * steps, per_cond * steps, 0),
+              (0, 3 * depth * steps, (2 * per_cond + per_uncond) * steps, 0)]
+    if [c1, c2] != expect or (c1[2], c2[2] - c1[2]) != (9550, 14400):
+        raise RuntimeError(f"int8 launch counts {[c1, c2]} differ from the path's {expect}")
+    check_images(img2, 2)
+    check_images(img1, 1)
+
+    before = counts()
+    _, lat2_p = pipe.decoding(ids[:2], noise=noise2, cfg_scale=1.0, kernels="plain",
+                              return_latents=True)
+    _, lat1_p = pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0, kernels="plain",
+                              return_latents=True)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    if not (torch.isfinite(lat2).all() and torch.isfinite(lat1).all()):
+        raise RuntimeError("non-finite int8 latents")
+    e2 = (lat2 - lat2_p).abs().max().item()
+    e1 = (lat1 - lat1_p).abs().max().item()
+    log(f"  int8 kernels vs forced plain: latents max abs diff {e2:.4g} (cfg 1.0) "
+        f"{e1:.4g} (cfg 2.0), latent abs max {lat2.abs().max().item():.3g}")
+    if e2 > LATENT_TOL or e1 > LATENT_TOL:
+        raise RuntimeError(f"int8 latents differ from the plain path by {max(e1, e2)} > {LATENT_TOL}")
+    # random weights: the deviation from bf16 is printed, not held to a limit
+    log(f"  int8 vs bf16 decode (random weights, no limit): latents max abs diff "
+        f"{(lat2 - ref['lat2']).abs().max().item():.4g} (cfg 1.0) "
+        f"{(lat1 - ref['lat1']).abs().max().item():.4g} (cfg 2.0); image PSNR "
+        f"{psnr(img2, ref['img2']):.2f} dB (cfg 1.0) {psnr(img1, ref['img1']):.2f} dB (cfg 2.0)")
+
+    w_dec = warm(lambda: pipe.decoding(ids[:2], noise=noise2, cfg_scale=1.0), 2)
+    w_cfg = warm(lambda: pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0), 1)
+    log(f"decode int8, 50 steps, cfg 1.0: {w_dec / 2:.3f} s/image (batch 2, {w_dec:.3f} s warm, "
+        f"{t_dec:.3f} s first call) on {card}")
+    log(f"decode int8, 50 steps, cfg 2.0: {w_cfg:.3f} s/image (batch 1, warm; "
+        f"{t_cfg:.3f} s first call) on {card}")
+    if do_profile:
+        profile_decode(pipe, ids[:2], noise2, w_dec, "int8")
+    del pipe
+    release()
+    return c2
+
+
+def renderer_path(card, ref):
+    """The one-step renderer at batch 8, in bf16 and in int8."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_RENDERER_CONFIG
+
+    ids = ref["ids"]
+    total = (0, 0, 0, 0)
+    images = {}
+    for dtype in (torch.bfloat16, "int8"):
+        pipe = build_pipeline(FLAGSHIP_RENDERER_CONFIG, dtype)
+        check_decoder_widths(pipe, renderer=True)
+        depth = pipe.tcfg.decoder.depth
+        if tuple(pipe.model.mask_token.shape) != (1, 1, 1536) \
+                or tuple(pipe.model.positional_embedding.shape) != (256, 1536):
+            raise RuntimeError("not the flagship renderer's mask token and grid")
+        pipe.decoding_with_renderer(ids[:1])          # warm-up outside the counted run
+        reset_counts()
+        (img, lat), t_first = timed(lambda: pipe.decoding_with_renderer(ids, return_latents=True))
+        c = counts()
+        expect = (0, 2 * depth, (8 * (depth - 1) + 7) if dtype == "int8" else 0, 0)
+        if c != expect or c[1] != 48 or c[2] not in (0, 191):
+            raise RuntimeError(f"renderer {dtype} launch counts {c} differ from {expect}")
+        total = tuple(a + b for a, b in zip(total, c))
+        check_images(img, 8)
+        before = counts()
+        _, lat_p = pipe.decoding_with_renderer(ids, kernels="plain", return_latents=True)
+        torch.cuda.synchronize()
+        if counts() != before:
+            raise RuntimeError("kernels='plain' launched a kernel")
+        if not torch.isfinite(lat.float()).all():
+            raise RuntimeError("non-finite renderer latents")
+        d = (lat.float() - lat_p.float()).abs()
+        e = d.max().item()
+        scale = lat_p.float().abs().max().item()
+        q999 = torch.quantile(d.flatten(), 0.999).item() / scale
+        log(f"  renderer {dtype} kernels vs forced plain: latents max abs diff {e:.4g} "
+            f"({e / scale:.4g} of the scale, 0.999 quantile {q999:.4g}), latent abs max {scale:.3g}")
+        if dtype == "int8":
+            if q999 > RENDER_INT8_TOL[0] or e / scale > RENDER_INT8_TOL[1]:
+                raise RuntimeError(f"renderer int8 latents differ from the plain path by "
+                                   f"{q999} (0.999 quantile) / {e / scale} (max) of the scale "
+                                   f"> {RENDER_INT8_TOL}")
+        elif e > LATENT_TOL:
+            raise RuntimeError(f"renderer {dtype} latents differ from the plain path by {e} > {LATENT_TOL}")
+        w = warm(lambda: pipe.decoding_with_renderer(ids), 3)
+        log(f"render {dtype}, one step: {8 / w:.2f} images/s (batch 8, {w * 1e3:.1f} ms warm, "
+            f"{t_first * 1e3:.1f} ms first call) on {card}")
+        images[str(dtype)] = img
+        del pipe
+        release()
+    log(f"  renderer int8 vs bf16 (random weights, no limit): image PSNR "
+        f"{psnr(images['int8'], images[str(torch.bfloat16)]):.2f} dB")
+    return total
+
+
+def main_path_phase(card, do_profile=False):
+    by_path = {}
+    by_path["encode + bf16 decode"], ref = bf16_path(card, do_profile)
+    by_path["int8 decode"] = int8_path(card, ref, do_profile)
+    by_path["renderer bf16 + int8"] = renderer_path(card, ref)
+    launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
+    by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in by_path.items()}
+    log(f"  launches on the main paths: {json.dumps(by_path)}")
+    return launches, by_path
 
 
 # ------------------------------------------------------------------ main ---
@@ -414,8 +769,10 @@ def main():
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm decode: device time by kernel, busy share")
+                    help="also profile one warm bf16 and one warm int8 decode: "
+                         "device time by kernel, busy share")
     args = ap.parse_args()
+    t_start = time.time()
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -434,38 +791,48 @@ def main():
 
     # phase 3: kernels against their plain versions
     log("phase kernels:")
-    attn_recs, vq_recs = kernel_phase()
-    launches = {"vq_argmax": 0, "flash_sdpa_key_mask": 0}
+    attn_recs, vq_recs, q8_recs, conv_recs = kernel_phase()
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    by_path = {}
 
-    # phase 4: the main path at full width
+    # phase 4: the main paths at full width
     if args.only is None:
         log("phase main path:")
-        launches = main_path_phase(card, args.profile)
+        launches, by_path = main_path_phase(card, args.profile)
 
-    def headline(name, recs, source, replaces):
+    def headline(name, recs, source, replaces, **extra):
         h = recs[0]   # the main path's first shape
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-                "shape": h["shape"], "cases": recs}
+                "shape": h["shape"], **extra, "cases": recs}
 
+    src = "selftoktokenizer_tpu_torch/csrc/"
     kernels = [
-        headline("vq_argmax", vq_recs, "selftoktokenizer_tpu_torch/csrc/vq_argmax.cu",
+        headline("vq_argmax", vq_recs, src + "vq_argmax.cu",
                  "selftoktokenizer_tpu/ops/vq_kernels.py:86"),
-        headline("flash_sdpa_key_mask", attn_recs,
-                 "selftoktokenizer_tpu_torch/csrc/flash_attention.cu",
+        headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
                  "selftoktokenizer_tpu/ops/flash_attention.py:102"),
+        headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
+                 "selftoktokenizer_tpu/ops/q8_matmul.py:75"),
+        # no path runs it, in the JAX package either: held here, wired nowhere
+        headline("conv3ch_3x3", conv_recs, src + "conv3ch.cu",
+                 "selftoktokenizer_tpu/ops/conv3ch.py:69", wired=False),
     ]
     if args.only is not None:
         log(json.dumps({"kernels": kernels}))
         log(card)
-        log(f"chip_smoke: stopped after phase {args.only}")
+        log(f"chip_smoke: stopped after phase {args.only} ({time.time() - t_start:.1f} s)")
         return 0
     for kr in kernels:
-        if kr["launches"] < 1:
+        if kr.get("wired", True) and kr["launches"] < 1:
             raise RuntimeError(f"the main path never launched {kr['name']}")
+    if launches["conv3ch_3x3"] != 0:
+        raise RuntimeError("conv3ch_3x3 is wired into nothing, yet the main path launched it")
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ import os
 
 import yaml
 
-FLAGSHIP_CONFIG = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "configs", "flagship-256.yml")
+_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs")
+FLAGSHIP_CONFIG = os.path.join(_CONFIGS, "flagship-256.yml")
+FLAGSHIP_RENDERER_CONFIG = os.path.join(_CONFIGS, "flagship-renderer-256.yml")
 
 
 class AttrDict(dict):

@@ -114,14 +114,18 @@ def _dismantled(out, pre, b, cfg, pre_only=False):
 
 
 def mmdit_state_dict(p, cfg):
-    """JAX MMDiT tree -> reference-named state dict."""
+    """JAX MMDiT tree (a decoder or a renderer) -> reference-named state dict."""
     out = {}
     _timestep_embedder(out, "t_embedder", p["t_embedder"])
     out["context_pos_embed"] = _t(p["context_pos_embed"])
     _linear(out, "final_layer.linear", p["final_layer"]["linear"])
     _linear(out, "final_layer.adaLN_modulation.1", p["final_layer"]["adaLN"])
-    _patch_embed(out, "x_embedder", p["x_embedder"], cfg.patch_size, cfg.in_channels)
-    out["pos_embed"] = _t(p["pos_embed"])
+    if cfg.renderer:
+        out["positional_embedding"] = _t(p["positional_embedding"])
+        out["mask_token"] = _t(p["mask_token"])
+    else:
+        _patch_embed(out, "x_embedder", p["x_embedder"], cfg.patch_size, cfg.in_channels)
+        out["pos_embed"] = _t(p["pos_embed"])
     _linear(out, "context_embedder", p["context_embedder"])
     if "y_embedder" in p:
         _timestep_embedder(out, "y_embedder", p["y_embedder"])

@@ -24,7 +24,7 @@ from torch import nn
 from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.ops.attention import sdpa, serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
-    gate, linear, mlp, modulate, patch_embed, timestep_embedder)
+    gate, gelu_tanh, linear, linear_apply, modulate, patch_embed, timestep_embedder)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
 from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_2d
 
@@ -100,7 +100,9 @@ class Mlp(nn.Module):
 
 
 def mlp_apply(m: Mlp, x):
-    return mlp(x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+    """Two-layer MLP with the tanh-approximate GELU; either linear may be a
+    Q8Linear (int8 decode)."""
+    return linear_apply(m.fc2, gelu_tanh(linear_apply(m.fc1, x)))
 
 
 class TimestepEmbedder(nn.Module):

@@ -1,16 +1,20 @@
-"""MMDiT: the SD3-style joint-attention diffusion decoder (counterpart of
-the reference ``models/mmdit.py:49-616``).
+"""MMDiT: the SD3-style joint-attention diffusion decoder and its one-step
+mask-token renderer (counterpart of the reference ``models/mmdit.py:49-616,
+717-745``).
 
 The modules own the weights under the reference checkpoint's names
 (``joint_blocks.{i}.x_block.attn.qkv.weight``, the last joint block with a
 pre-only context branch, ...); the functions, named as in the reference, do
 the work. The joint attention of every block goes through
 ``ops.attention.serving_attention`` -> the CUDA kernel, for bf16 and fp32
-alike. The context stream's per-position adaLN table depends only on the
+alike; the renderer's full mask is two key masks stacked by row, so it takes
+two kernel calls per block (``renderer_apply``). Every linear goes through
+``ops.linear.linear_apply``, so a ``Q8Linear`` (int8 decode) takes the int8
+kernel. The context stream's per-position adaLN table depends only on the
 weights and is computed once (``precompute_context_mods``).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md queue
-item): the renderer, ``register_length > 0`` under CFG
+item): ``register_length > 0`` under CFG
 (``mmdit_cfg_inference``), ``mmdit_cfg_batched``, ``context_see_xt=False``,
 pooled conditioning, qk-norm 'ln', the 'pos_t_emb' mode.
 """
@@ -26,10 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from selftoktokenizer_tpu_torch.models.encoder import (
-    Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, mlp_apply,
+    Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, _merge_heads, mlp_apply,
     patch_embed_apply, timestep_embedder_apply)
 from selftoktokenizer_tpu_torch.ops.attention import serving_attention
-from selftoktokenizer_tpu_torch.ops.linear import linear, modulate, unpatchify
+from selftoktokenizer_tpu_torch.ops.linear import (
+    linear, linear_apply, modulate, unpatchify)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
 from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_1d
 
@@ -88,10 +93,6 @@ class MMDiTConfig:
 
 
 def _check_supported(cfg: MMDiTConfig):
-    if cfg.renderer:
-        raise NotImplementedError(
-            "the renderer (renderer_apply, decoding_with_renderer) is not "
-            "ported yet: ROADMAP.md queue item 'renderer'")
     later = ("ROADMAP.md queue item 'remaining encoder modes / multires / DiT "
              "/ DDPM / text encoders'")
     if cfg.time_adaln not in ("pos_emb", "t_emb"):
@@ -150,7 +151,9 @@ class FinalLayer(nn.Module):
 
 class MMDiT(nn.Module):
     """Weights of the decoder. ``joint_blocks[depth-1]`` is the last block,
-    whose context branch is pre-only."""
+    whose context branch is pre-only. A renderer (``cfg.renderer``) owns a
+    learned ``mask_token`` [1, 1 or grid^2, D] and ``positional_embedding``
+    [grid^2, D] in place of the patch embedder and its ``pos_embed``."""
 
     def __init__(self, cfg: MMDiTConfig):
         super().__init__()
@@ -160,8 +163,14 @@ class MMDiT(nn.Module):
         self.t_embedder = TimestepEmbedder(D)
         self.context_embedder = nn.Linear(cfg.encoder_hidden_size, cfg.context_dim)
         self.final_layer = FinalLayer(cfg)
-        self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
-        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, D))
+        if cfg.renderer:
+            grid = cfg.input_size // 2
+            self.positional_embedding = nn.Parameter(torch.empty(grid * grid, D))
+            self.mask_token = nn.Parameter(torch.empty(
+                1, 1 if cfg.repeat_mask_token else grid * grid, D))
+        else:
+            self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
+            self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, D))
         if cfg.adm_in_channels is not None:
             # part of the checkpoint; only pooled conditioning reads it
             self.y_embedder = TimestepEmbedder(D, dim_freq=cfg.adm_in_channels)
@@ -187,7 +196,7 @@ def _qkv_split(p: DismantledBlock, cfg: MMDiTConfig, x):
     """qkv linear + optional per-head q/k norm, flat [B,L,C] -> 3x[B,H,L,D]."""
     B, L, C = x.shape
     H = cfg.num_heads
-    qkv = linear(x, p.attn.qkv.weight, p.attn.qkv.bias).reshape(B, L, 3, H, C // H)
+    qkv = linear_apply(p.attn.qkv, x).reshape(B, L, 3, H, C // H)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if cfg.qk_norm == "rms":
         q = rms_norm(q, p.attn.ln_q.weight)
@@ -217,31 +226,37 @@ def dismantled_pre_attention(p: DismantledBlock, cfg: MMDiTConfig, x, c,
 def dismantled_post_attention(p: DismantledBlock, attn_out, inter):
     """attn_out: [B, L, C]."""
     x, gate_msa, shift_mlp, scale_mlp, gate_mlp, axis = inter
-    x = x + gate_msa.unsqueeze(axis) * linear(attn_out, p.attn.proj.weight,
-                                              p.attn.proj.bias)
+    x = x + gate_msa.unsqueeze(axis) * linear_apply(p.attn.proj, attn_out)
     x = x + gate_mlp.unsqueeze(axis) * mlp_apply(
         p.mlp, modulate(layer_norm(x), shift_mlp, scale_mlp, axis))
     return x
 
 
 def joint_block_apply(bp: JointBlock, cfg: MMDiTConfig, context, x, c,
-                      pos_mods=None, key_mask=None, last=False):
+                      pos_mods=None, key_mask=None, last=False, ctx_key_mask=None):
     """One JointBlock: separate pre-attention per stream, one concatenated
     attention (context keys first), separate post-attention.
+
+    key_mask [B, Lc+Lx] masks the keys of every row. With ctx_key_mask
+    [B, Lc] the context rows attend over the context keys only, under that
+    mask (context_see_xt=False, the renderer's mask), and the x rows over all
+    keys under key_mask: two attention calls instead of one.
     Returns (context', x')."""
     ctx_qkv, ctx_inter = dismantled_pre_attention(
         bp.context_block, cfg, context, c,
         pos_mods=None if last else pos_mods, pre_only=last)
     x_qkv, x_inter = dismantled_pre_attention(bp.x_block, cfg, x, c)
 
-    q = torch.cat([ctx_qkv[0], x_qkv[0]], dim=2)
     k = torch.cat([ctx_qkv[1], x_qkv[1]], dim=2)
     v = torch.cat([ctx_qkv[2], x_qkv[2]], dim=2)
-    attn = serving_attention(q, k, v, key_mask)
-    Lc = context.shape[1]
-    b, h, L, d = attn.shape
-    attn = attn.permute(0, 2, 1, 3).reshape(b, L, h * d)
-    ctx_attn, x_attn = attn[:, :Lc], attn[:, Lc:]
+    if ctx_key_mask is None:
+        q = torch.cat([ctx_qkv[0], x_qkv[0]], dim=2)
+        attn = _merge_heads(serving_attention(q, k, v, key_mask))
+        Lc = context.shape[1]
+        ctx_attn, x_attn = attn[:, :Lc], attn[:, Lc:]
+    else:
+        ctx_attn = _merge_heads(serving_attention(*ctx_qkv, ctx_key_mask))
+        x_attn = _merge_heads(serving_attention(x_qkv[0], k, v, key_mask))
 
     new_ctx = None if last else dismantled_post_attention(
         bp.context_block, ctx_attn, ctx_inter)
@@ -258,7 +273,7 @@ def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
     L = length if length is not None else cfg.register_length + cfg.K
     base = 1000 + 8 * np.arange(L) if cfg.diti_positions else np.arange(L)
     positions = torch.as_tensor(base, dtype=torch.float32,
-                                device=params.pos_embed.device)
+                                device=params.context_pos_embed.device)
     mods = []
     for bp in list(params.joint_blocks)[:-1]:
         t_emb = timestep_embedder_apply(bp.context_block.t_embedder, positions)
@@ -268,15 +283,15 @@ def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
 
 def final_layer_apply(p: FinalLayer, x, c):
     shift, scale = torch.chunk(_adaln(p, c), 2, dim=-1)
-    return linear(modulate(layer_norm(x), shift, scale, 1),
-                  p.linear.weight, p.linear.bias)
+    return linear_apply(p.linear, modulate(layer_norm(x), shift, scale, 1))
 
 
 # ---------------------------------------------------------------------------
 # MMDiT
 # ---------------------------------------------------------------------------
 
-def _trunk(params: MMDiT, cfg: MMDiTConfig, context, x, c, ctx_mods, key_mask=None):
+def _trunk(params: MMDiT, cfg: MMDiTConfig, context, x, c, ctx_mods, key_mask=None,
+           ctx_key_mask=None):
     """depth-1 joint blocks + the final pre-only block + final layer."""
     if ctx_mods is not None:
         ctx_mods = ctx_mods.to(context.dtype)
@@ -284,9 +299,10 @@ def _trunk(params: MMDiT, cfg: MMDiTConfig, context, x, c, ctx_mods, key_mask=No
     for i, bp in enumerate(blocks[:-1]):
         context, x = joint_block_apply(
             bp, cfg, context, x, c,
-            pos_mods=None if ctx_mods is None else ctx_mods[i], key_mask=key_mask)
+            pos_mods=None if ctx_mods is None else ctx_mods[i], key_mask=key_mask,
+            ctx_key_mask=ctx_key_mask)
     _, x = joint_block_apply(blocks[-1], cfg, context, x, c, key_mask=key_mask,
-                             last=True)
+                             last=True, ctx_key_mask=ctx_key_mask)
     return final_layer_apply(params.final_layer, x, c)
 
 
@@ -328,8 +344,7 @@ def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
     c = timestep_embedder_apply(params.t_embedder, t * 1000.0).to(xt.dtype)
 
     Lc = encoder_hidden_states.shape[1]
-    ce = params.context_embedder
-    context = linear(encoder_hidden_states, ce.weight, ce.bias)
+    context = linear_apply(params.context_embedder, encoder_hidden_states)
     context = (context + params.context_pos_embed[:, :Lc]).to(xt.dtype)
 
     if mask is None:
@@ -376,10 +391,50 @@ def mmdit_uncond_xonly(params: MMDiT, cfg: MMDiTConfig, x, t):
     ti = torch.clamp(torch.floor(t * 1000.0), 0, 999).to(torch.int32)
     c = timestep_embedder_apply(params.t_embedder, ti).to(xt.dtype)
     for bp in params.joint_blocks:
-        (q, k, v), inter = dismantled_pre_attention(bp.x_block, cfg, xt, c)
-        attn = serving_attention(q, k, v)
-        b, nh, L, d = attn.shape
-        attn = attn.permute(0, 2, 1, 3).reshape(b, L, nh * d)
-        xt = dismantled_post_attention(bp.x_block, attn, inter)
+        qkv, inter = dismantled_pre_attention(bp.x_block, cfg, xt, c)
+        xt = dismantled_post_attention(bp.x_block, _merge_heads(serving_attention(*qkv)),
+                                       inter)
     out = final_layer_apply(params.final_layer, xt, c)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
+
+
+def renderer_apply(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask=None,
+                   ctx_mods=None):
+    """MMDiT_Renderer forward (the reference's ``renderer_apply``): the x
+    stream is the learned mask token over the latent grid at the fixed
+    t = 1000, and one pass gives the predicted clean latent, NHWC
+    [B, input, input, C]. encoder_hidden_states: [B, K, encoder_hidden_size];
+    mask: optional [B, K] bool token mask.
+
+    The context and the timestep embedding are computed in the type of
+    encoder_hidden_states (fp32 from the pipeline) and only then cast to the
+    decoder's type, as in the reference.
+
+    The reference's mask is the full [B,1,L,L] one with
+    context_see_xt=False: context rows attend over [registers, tokens], x
+    rows over every key. That is two key masks stacked by row, so each block
+    makes two calls of the attention kernel (48 at depth 24). It equals the
+    reference for every row with at least one active key. A context row
+    whose registers and tokens are all masked would be NaN there (a softmax
+    over -inf only) and the uniform mean of its keys here; the pipeline
+    never builds one (its renderer call masks no token)."""
+    B = encoder_hidden_states.shape[0]
+    grid = cfg.input_size // 2
+    tok = params.mask_token
+    x = tok.expand(B, grid * grid, cfg.hidden_size) + params.positional_embedding.to(tok.dtype)
+    t1000 = torch.full((B,), 1000.0, dtype=torch.float32, device=x.device)
+    c = timestep_embedder_apply(params.t_embedder, t1000).to(x.dtype)
+    context = linear_apply(params.context_embedder, encoder_hidden_states)
+    context = (context + params.context_pos_embed).to(x.dtype)
+    if cfg.register_length > 0:
+        context = torch.cat(
+            [params.register.to(context.dtype).expand(B, -1, -1), context], dim=1)
+    if mask is None:
+        mask = torch.ones((B, cfg.K), dtype=torch.bool, device=x.device)
+    ctx_key_mask = build_decode_key_mask(mask, 0, cfg.register_length)
+    key_mask = build_decode_key_mask(mask, x.shape[1], cfg.register_length)
+    if ctx_mods is None:
+        ctx_mods = precompute_context_mods(params, cfg)
+    out = _trunk(params, cfg, context, x, c, ctx_mods, key_mask=key_mask,
+                 ctx_key_mask=ctx_key_mask)
+    return unpatchify(out, cfg.patch_size, cfg.out_ch, grid, grid)

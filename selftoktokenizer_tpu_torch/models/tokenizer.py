@@ -108,8 +108,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
                   zero_init_std: float = 0.0):
     """Seeded init of every leaf, by the reference's scheme: uniform
     fan-in bounds for matrices and conv kernels, std-0.02 normals for the
-    timestep embedders and the query tokens, an l2-normalised codebook, norm
-    weights one.
+    timestep embedders and the query tokens, std hidden^-0.5 normals for the
+    renderer's mask token and positional embedding, an l2-normalised
+    codebook, norm weights one.
 
     The reference zero-initialises every adaLN projection and every bias,
     which closes every attention gate: the attention output then never
@@ -128,6 +129,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
             t.normal_(std=0.02, generator=generator)
         elif leaf == "register":
             t.normal_(generator=generator)
+        elif leaf in ("positional_embedding", "mask_token"):
+            t.normal_(std=t.shape[-1] ** -0.5, generator=generator)   # the renderer's
         elif leaf == "pos_embed":
             zero = True
         elif "adaLN_modulation" in parent:

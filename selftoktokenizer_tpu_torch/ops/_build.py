@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-KERNEL_SOURCES = ("vq_argmax", "flash_attention")
+KERNEL_SOURCES = ("vq_argmax", "flash_attention", "q8_matmul", "conv3ch")
 
 _libs = {}
 _lock = threading.Lock()

@@ -6,7 +6,8 @@ modules' state dicts carry the reference checkpoint names and shapes;
 ``core/convert.py`` undoes the JAX package's ``[in, out]`` / ``HWIO``
 layouts. Feature maps are NHWC at every public function, as in the
 reference; convs permute to NCHW inside. Weights are stored fp32 and cast to
-the activation dtype at use.
+the activation dtype at use. ``linear_apply`` is the one dispatch point for
+a linear module: an ``nn.Linear``, or a ``Q8Linear`` of the int8 decode.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from selftoktokenizer_tpu_torch.ops import routing
 from selftoktokenizer_tpu_torch.ops.posembed import timestep_embedding
+from selftoktokenizer_tpu_torch.ops.q8_matmul import Q8Linear, q8_linear
 
 
 def linear(x, weight, bias=None):
@@ -23,15 +26,18 @@ def linear(x, weight, bias=None):
                     None if bias is None else bias.to(x.dtype))
 
 
+def linear_apply(m, x):
+    """A linear module applied to x (the reference's ``linear``, which
+    dispatches on a quantized parameter dict): a ``Q8Linear`` goes to the
+    int8 kernel wrapper, or to its plain version under
+    ``routing.kernel_route("plain")``; an ``nn.Linear`` to ``linear``."""
+    if isinstance(m, Q8Linear):
+        return q8_linear(m, x, plain=routing.current() == "plain")
+    return linear(x, m.weight, m.bias)
+
+
 def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
-
-
-def mlp(x, fc1_w, fc1_b, fc2_w, fc2_b, act=None):
-    """Two-layer MLP; default act is the tanh-approximate GELU."""
-    h = linear(x, fc1_w, fc1_b)
-    h = gelu_tanh(h) if act is None else act(h)
-    return linear(h, fc2_w, fc2_b)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding="SAME"):

@@ -5,6 +5,8 @@ reference ``pipeline/pipeline.py``).
   -> VQ -> token ids.
 * ``decoding``: ids -> codebook gather + post norm -> 50-step Euler sampler
   over the MMDiT (bucketed context lengths) -> SD3 VAE decode -> images.
+* ``decoding_with_renderer``: ids -> codebook gather + post norm -> one pass
+  of the mask-token renderer (``MMDiT_XL_Renderer``) -> SD3 VAE decode.
 
 Images and latents are NHWC. The pipeline runs on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no explicit ``device="cpu"`` it
@@ -16,6 +18,10 @@ attention, exact-fp32 VQ kernel, and TF32 switched off for matmuls and for
 cuDNN convolutions (cuDNN's default is on). ``'default'``: bf16 trunk, query
 attention through the CUDA attention kernel. Decode runs in ``decode_dtype``
 (bf16 or fp32) with the joint attention through the kernel in both.
+``decode_dtype='int8'`` keeps bf16 activations and swaps the decoder's
+projections for int8 weights (``ops.q8_matmul.quantize_model_``, after the
+cast to bf16, as the reference quantizes), which run through the W8A8
+``q8_matmul`` kernel.
 """
 
 from __future__ import annotations
@@ -27,13 +33,14 @@ from selftoktokenizer_tpu_torch.models import flow as flow_mod
 from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.models.encoder import encoder_apply, encoder_margins
 from selftoktokenizer_tpu_torch.models.mmdit import (
-    mmdit_apply, mmdit_uncond_xonly, precompute_context_mods)
+    mmdit_apply, mmdit_uncond_xonly, precompute_context_mods, renderer_apply)
 from selftoktokenizer_tpu_torch.models.tokenizer import (
     ImageTokenizer, TokenizerConfig, init_weights_, tokenizer_config_from_params)
 from selftoktokenizer_tpu_torch.models.vae import (
     SD3LatentFormat, SDVAE, VAEConfig, vae_decode, vae_encode_mode)
 from selftoktokenizer_tpu_torch.ops import routing
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm
+from selftoktokenizer_tpu_torch.ops.q8_matmul import quantize_model_
 
 
 def _resolve_device(device):
@@ -47,10 +54,12 @@ def _resolve_device(device):
 
 
 class SelftokPipeline:
-    """encoding(images) -> token ids; decoding(ids) -> images.
+    """encoding(images) -> token ids; decoding(ids) -> images (a decoder
+    config); decoding_with_renderer(ids) -> images (a renderer config).
 
     cfg: the YAML config (AttrDict from core.config.load_config) in the
-    reference's schema. zero_init_std: see
+    reference's schema. decode_dtype: torch.float32, torch.bfloat16 or
+    'int8' (bf16 activations, int8 decoder projections). zero_init_std: see
     ``models.tokenizer.init_weights_`` (0 keeps the reference init, whose
     zero adaLN gates switch every attention off).
     """
@@ -64,12 +73,12 @@ class SelftokPipeline:
             raise NotImplementedError(
                 "checkpoint loading is not ported yet: ROADMAP.md queue item "
                 "'.pth checkpoint input and a smoke.py counterpart'")
-        if decode_dtype == "int8":
-            raise NotImplementedError(
-                "decode_dtype='int8' is not ported yet: ROADMAP.md queue item "
-                "'int8 decode with q8_matmul'")
+        self.int8_decode = decode_dtype == "int8"
+        if self.int8_decode:
+            decode_dtype = torch.bfloat16
         if decode_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"decode_dtype must be torch.float32 or torch.bfloat16, got {decode_dtype}")
+            raise ValueError("decode_dtype must be torch.float32, torch.bfloat16 or "
+                             f"'int8', got {decode_dtype}")
         _check_precision(encode_precision)
         self.device = _resolve_device(device)
         self.cfg = cfg
@@ -82,10 +91,6 @@ class SelftokPipeline:
             dict(cfg.tokenizer.params))
         self.diti = self.tcfg.make_diti()
         self.K = self.tcfg.k
-        if self.tcfg.decoder.renderer and not encode_only:
-            raise NotImplementedError(
-                "the renderer (renderer_apply, decoding_with_renderer) is not "
-                "ported yet: ROADMAP.md queue item 'renderer'")
 
         # decode-time schedule + per-step token-count table
         self.steps = steps
@@ -109,7 +114,8 @@ class SelftokPipeline:
         """Install modules (moved to the pipeline's device). The decoder's
         context adaLN table is computed here, in fp32, before the decoder is
         cast to the decode dtype in place: the pipeline keeps no fp32 copy
-        of the 2B-parameter decoder."""
+        of the 2B-parameter decoder. Under int8 the bf16 decoder's eligible
+        linears are then quantized in place."""
         if tokenizer is not None:
             tokenizer = tokenizer.to(self.device).requires_grad_(False)
             self.encoder = tokenizer.encoder
@@ -120,6 +126,8 @@ class SelftokPipeline:
                     self._ctx_mods = precompute_context_mods(
                         self.model.float(), self.tcfg.decoder)
                 self.model.to(self.decode_dtype)
+                if self.int8_decode:
+                    quantize_model_(self.model)
         if vae is not None:
             self.vae = vae.to(self.device).requires_grad_(False)
             self.vae_cfg = vae.cfg
@@ -173,10 +181,21 @@ class SelftokPipeline:
             images = self._latents_to_images(pred_x0)
         return (images, pred_x0) if return_latents else images
 
-    def decoding_with_renderer(self, ids):
-        raise NotImplementedError(
-            "the renderer (renderer_apply, decoding_with_renderer) is not "
-            "ported yet: ROADMAP.md queue item 'renderer'")
+    @torch.no_grad()
+    def decoding_with_renderer(self, ids, kernels="cuda", return_latents=False):
+        """ids: [B,K] int -> images NHWC float [0,1] from one pass of the
+        mask-token renderer. The codebook context enters the decoder in fp32
+        and is cast after its embedding, as in the reference.
+        kernels="plain" swaps the CUDA kernels for their plain versions;
+        return_latents: also return the renderer's latents."""
+        self._require_decoder(renderer=True)
+        ids = self._to_device(ids)
+        with routing.kernel_route(kernels):
+            pred_x0 = renderer_apply(self.model, self.tcfg.decoder,
+                                     self._tokens_to_context(ids),
+                                     ctx_mods=self._ctx_mods)
+            images = self._latents_to_images(pred_x0)
+        return (images, pred_x0) if return_latents else images
 
     @torch.no_grad()
     def decode_latents(self, latents):
@@ -215,9 +234,17 @@ class SelftokPipeline:
             outs_q = layer_norm(outs_q, ln.weight, ln.bias)
         return outs_q
 
-    def _decode_latents_impl(self, ids, noise, cfg_scale=None):
+    def _require_decoder(self, renderer):
         if self.model is None:
-            raise RuntimeError("this pipeline was built encode_only")
+            raise RuntimeError("this pipeline was built encode_only: it has no decoder")
+        if self.tcfg.decoder.renderer != renderer:
+            raise ValueError(
+                f"{self.tcfg.model_name} "
+                + ("is no renderer: use decoding" if renderer
+                   else "is a renderer: use decoding_with_renderer"))
+
+    def _decode_latents_impl(self, ids, noise, cfg_scale=None):
+        self._require_decoder(renderer=False)
         cs = self.cfg_scale if cfg_scale is None else cfg_scale
         outs_q = self._tokens_to_context(ids)
         n_tok = outs_q.shape[1]

@@ -84,7 +84,11 @@ def test_out_of_slice_modes_raise_not_implemented():
         cfg = tokenizer_config_from_params(dict(params, enc=enc))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ImageTokenizer(cfg, encode_only=True)
+    # the renderer is ported (it builds); pooled conditioning is not
     cfg = tokenizer_config_from_params(dict(params, model="MMDiT_XL_Renderer"))
+    assert ImageTokenizer(cfg).model.mask_token.shape[-1] == cfg.decoder.hidden_size
+    cfg = tokenizer_config_from_params(dict(params, decoder_config=dict(
+        params["decoder_config"], sd3_cond_pooling="last")))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ImageTokenizer(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

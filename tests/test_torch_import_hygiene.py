@@ -46,7 +46,10 @@ def test_port_has_every_module_of_the_slice():
             "models/vq.py", "models/encoder.py", "models/vae.py", "models/mmdit.py",
             "models/flow.py", "models/zoo.py", "models/tokenizer.py",
             "pipeline/pipeline.py", "csrc/vq_argmax.cu", "csrc/flash_attention.cu",
-            "configs/flagship-256.yml"]
+            "configs/flagship-256.yml",
+            # the int8 decode, the renderer and the last TPU kernel
+            "ops/q8_matmul.py", "ops/conv3ch.py", "csrc/q8_matmul.cu", "csrc/conv3ch.cu",
+            "configs/flagship-renderer-256.yml"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing, missing
 

@@ -142,8 +142,11 @@ def test_kernel_modules_import_without_triton_or_nvcc():
         "sys.modules['triton'] = None\n"          # any 'import triton' would raise
         "import selftoktokenizer_tpu_torch.ops.flash_attention as fa\n"
         "import selftoktokenizer_tpu_torch.ops.vq_kernels as vk\n"
+        "import selftoktokenizer_tpu_torch.ops.q8_matmul as q8\n"
+        "import selftoktokenizer_tpu_torch.ops.conv3ch as c3\n"
         "import selftoktokenizer_tpu_torch.ops._build as b\n"
-        "assert fa.launch_count == 0 and vk.launch_count == 0 and not b._libs\n"
+        "assert fa.launch_count == vk.launch_count == q8.launch_count == c3.launch_count == 0\n"
+        "assert not b._libs\n"
         "print('imported')\n")
     env = dict(os.environ, PYTHONPATH=ROOT, PATH="/nonexistent")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

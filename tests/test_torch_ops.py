@@ -13,6 +13,7 @@ from selftoktokenizer_tpu.ops import attention as jat
 from selftoktokenizer_tpu.ops import linear as jlin
 from selftoktokenizer_tpu.ops import norms as jnorm
 from selftoktokenizer_tpu.ops import posembed as jpos
+from selftoktokenizer_tpu_torch.models.encoder import Mlp, mlp_apply
 from selftoktokenizer_tpu_torch.ops import attention as tat
 from selftoktokenizer_tpu_torch.ops import linear as tlin
 from selftoktokenizer_tpu_torch.ops import norms as tnorm
@@ -73,7 +74,10 @@ def test_linear_and_mlp():
           jlin.linear({"w": jnp.asarray(w1), "b": jnp.asarray(b1)}, jnp.asarray(x)))
     jp = {"fc1": {"w": jnp.asarray(w1), "b": jnp.asarray(b1)},
           "fc2": {"w": jnp.asarray(w2), "b": jnp.asarray(b2)}}
-    close(tlin.mlp(T(x), T(w1.T), T(b1), T(w2.T), T(b2)), jlin.mlp(jp, jnp.asarray(x)))
+    m = Mlp(16, 24)
+    m.load_state_dict({"fc1.weight": T(w1.T), "fc1.bias": T(b1),
+                       "fc2.weight": T(w2.T), "fc2.bias": T(b2)})
+    close(mlp_apply(m, T(x)), jlin.mlp(jp, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("stride,padding,k", [(1, "SAME", 3), (1, "SAME", 1), (2, "VALID", 3)])

@@ -8,84 +8,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from selftoktokenizer_tpu.core.config import AttrDict as JAttrDict
 from selftoktokenizer_tpu.core.config import load_config as j_load_config
 from selftoktokenizer_tpu.models import vae as j_vae
-from selftoktokenizer_tpu.pipeline import SelftokPipeline as JaxPipeline
-from selftoktokenizer_tpu_torch.core import convert
 from selftoktokenizer_tpu_torch.core.config import AttrDict, load_config
-from selftoktokenizer_tpu_torch.models.vae import VAEConfig
 from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
 from tests.torch_port_helpers import (
-    encoder_tables, jax_tree, mmdit_tables, seeded_tree, to_np)
+    TINY, assert_images_close, jax_decode as _jax_decode, pipeline_pair as _pair, to_np)
 
-TINY = "tests/data/tiny-eval.yml"
 LATENT_TOL = 1e-3     # fp32 decode from identical ids through <= 6 Euler steps
-
-
-def assert_images_close(got, want):
-    """The VAE decodes in bf16 on both sides, and XLA and PyTorch round at
-    different places: each side's bf16 image lies up to 0.035 from its own
-    fp32 image with these weights, single pixels further. So: within 5e-2
-    for all but one pixel value in a thousand, and none beyond 1e-1."""
-    d = np.abs(to_np(got) - to_np(want))
-    assert np.quantile(d, 0.999) <= 5e-2 and d.max() <= 1e-1, (np.quantile(d, 0.999), d.max())
-
-
-def _pair(cfg_dict, steps, seed):
-    """(jax pipeline, port pipeline) with one set of seeded weights and a
-    narrow VAE (ch=32) on both sides."""
-    import functools
-    from unittest import mock
-
-    import selftoktokenizer_tpu.pipeline.pipeline as j_pipeline_mod
-    from selftoktokenizer_tpu.models.mmdit import precompute_context_mods
-    from selftoktokenizer_tpu.models.tokenizer import tokenizer_init
-
-    def zeros_like_init(init_fn):
-        # the JAX constructor draws random weights that are replaced below:
-        # give it zero trees of the right shapes, which cost no compile
-        def fn(key, cfg, *a, **kw):
-            shapes = jax.eval_shape(lambda k: init_fn(k, cfg, *a, **kw), key)
-            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
-        return fn
-
-    # the JAX pipeline builds VAEConfig() itself: hand it the narrow one
-    with mock.patch.object(j_pipeline_mod, "VAEConfig",
-                           functools.partial(j_vae.VAEConfig, ch=32)), \
-            mock.patch.object(j_pipeline_mod, "tokenizer_init", zeros_like_init(tokenizer_init)), \
-            mock.patch.object(j_pipeline_mod, "vae_init", zeros_like_init(j_vae.vae_init)):
-        jpipe = JaxPipeline(JAttrDict(cfg_dict), datasize=64, steps=steps)
-    assert jpipe.vae_cfg.ch == 32
-    tc = jpipe.tcfg
-    vae_tree = seeded_tree(lambda k: j_vae.vae_init(k, jpipe.vae_cfg), seed)
-    tok_tree = seeded_tree(
-        lambda k: tokenizer_init(k, tc), seed + 1,
-        {**encoder_tables(tc.encoder, ("encoder",)), **mmdit_tables(tc.decoder, ("model",))})
-    jpipe.vae_params = jax_tree(vae_tree)
-    jpipe.params = jax_tree(tok_tree)
-    jpipe._ctx_mods = precompute_context_mods(jpipe.params["model"], tc.decoder)
-
-    tpipe = SelftokPipeline(AttrDict(cfg_dict), datasize=64, steps=steps, device="cpu")
-    tpipe.set_weights(convert.tokenizer_from_jax_tree(tok_tree, tpipe.tcfg),
-                      convert.vae_from_jax_tree(vae_tree, VAEConfig(ch=32)))
-    return jpipe, tpipe
-
-
-def _jax_decode(jpipe, ids, noise, cfg_scale=None):
-    """(latents, images) of the JAX pipeline for given start noise: its
-    jitted decode with the final VAE step taken off, then its own
-    decode_latents."""
-    keep = jpipe._latents_to_images
-    jpipe._latents_to_images = lambda vp, x: x
-    try:
-        fn = jax.jit(jpipe._decode_impl, static_argnames=("cfg_scale",))
-        lat = fn(jpipe.params, jpipe._ctx_mods, jpipe.vae_params, jnp.asarray(ids),
-                 jnp.asarray(noise), cfg_scale=cfg_scale)
-        lat = jax.block_until_ready(lat)
-    finally:
-        jpipe._latents_to_images = keep
-    return to_np(lat), to_np(jpipe.decode_latents(lat))
 
 
 @pytest.fixture(scope="module")
@@ -182,13 +112,24 @@ def test_k256_bucketed_decode_equals_single_loop_and_jax():
 
 def test_entry_points_raise_for_what_is_not_ported():
     cfg = load_config(TINY)
-    for kw in (dict(ckpt_path="x.pth"), dict(decode_dtype="int8"),
-               dict(encode_precision="high")):
+    for kw in (dict(ckpt_path="x.pth"), dict(encode_precision="high")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SelftokPipeline(cfg, datasize=64, device="cpu", **kw)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SelftokPipeline(cfg, datasize=64)          # no GPU here, no silent CPU fallback
+    # int8 and the renderer are ported: both build
+    pipe8 = SelftokPipeline(cfg, datasize=64, steps=2, device="cpu", decode_dtype="int8")
+    assert pipe8.int8_decode and pipe8.decode_dtype == torch.bfloat16
+    rcfg = cfg.to_dict()
+    rcfg["tokenizer"]["params"]["model"] = "MMDiT_XL_Renderer"
+    rpipe = SelftokPipeline(AttrDict(rcfg), datasize=64, device="cpu")
+    assert rpipe.tcfg.decoder.renderer and hasattr(rpipe.model, "mask_token")
+    with pytest.raises(ValueError, match="decoding_with_renderer"):
+        rpipe.decoding(np.zeros((1, 8), np.int64))
+    with pytest.raises(ValueError, match="decoding"):
+        pipe8.decoding_with_renderer(np.zeros((1, 8), np.int64))
     pipe = SelftokPipeline(cfg, datasize=64, steps=2, device="cpu", encode_only=True)
     assert pipe.model is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.decoding_with_renderer(np.zeros((1, 8), np.int64))
+    for decode in (pipe.decoding, pipe.decoding_with_renderer):
+        with pytest.raises(RuntimeError, match="encode_only"):
+            decode(np.zeros((1, 8), np.int64))

@@ -1,9 +1,12 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: seeded numpy weights handed to both sides, and conversions between
-the two frameworks' arrays."""
+package: seeded numpy weights handed to both sides, conversions between the
+two frameworks' arrays, and a pair of pipelines (JAX, port) with one set of
+weights."""
 
 import numpy as np
 import torch
+
+TINY = "tests/data/tiny-eval.yml"
 
 # the suite runs several workers side by side and these tests are small: two
 # threads a worker keep PyTorch's CPU pool from oversubscribing the cores
@@ -88,3 +91,111 @@ def mmdit_tables(cfg, prefix=()):
     base = 1000 + 8 * np.arange(cfg.K) if cfg.diti_positions else np.arange(cfg.K)
     return {prefix + ("context_pos_embed",):
             sincos_1d(cfg.context_dim, base.astype(np.float32))[None]}
+
+
+def assert_images_close(got, want):
+    """The VAE decodes in bf16 on both sides, and XLA and PyTorch round at
+    different places: each side's bf16 image lies up to 0.035 from its own
+    fp32 image with these weights, single pixels further. So: within 5e-2
+    for all but one pixel value in a thousand, and none beyond 1e-1."""
+    d = np.abs(to_np(got) - to_np(want))
+    assert np.quantile(d, 0.999) <= 5e-2 and d.max() <= 1e-1, (np.quantile(d, 0.999), d.max())
+
+
+def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
+    """(jax pipeline, port pipeline) with one set of seeded weights and a
+    narrow VAE (ch=32) on both sides. decode_dtype: torch.float32,
+    torch.bfloat16 or 'int8'. The JAX pipeline casts and quantizes its
+    decoder in its constructor, before the weights are swapped in here, so
+    the cast to bf16 and ``quantize_params_tree`` are repeated on the
+    swapped-in tree, after the context adaLN table is computed in fp32 (the
+    order of both constructors)."""
+    import functools
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+
+    import selftoktokenizer_tpu.pipeline.pipeline as j_pipeline_mod
+    from selftoktokenizer_tpu.core.config import AttrDict as JAttrDict
+    from selftoktokenizer_tpu.models import vae as j_vae
+    from selftoktokenizer_tpu.models.mmdit import precompute_context_mods
+    from selftoktokenizer_tpu.models.tokenizer import tokenizer_init
+    from selftoktokenizer_tpu.ops.q8_matmul import quantize_params_tree
+    from selftoktokenizer_tpu.pipeline import SelftokPipeline as JaxPipeline
+    from selftoktokenizer_tpu_torch.core import convert
+    from selftoktokenizer_tpu_torch.core.config import AttrDict
+    from selftoktokenizer_tpu_torch.models.vae import VAEConfig
+    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+
+    def zeros_like_init(init_fn):
+        # the JAX constructor draws random weights that are replaced below:
+        # give it zero trees of the right shapes, which cost no compile
+        def fn(key, cfg, *a, **kw):
+            shapes = jax.eval_shape(lambda k: init_fn(k, cfg, *a, **kw), key)
+            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
+        return fn
+
+    # the JAX pipeline builds VAEConfig() itself: hand it the narrow one
+    with mock.patch.object(j_pipeline_mod, "VAEConfig",
+                           functools.partial(j_vae.VAEConfig, ch=32)), \
+            mock.patch.object(j_pipeline_mod, "tokenizer_init", zeros_like_init(tokenizer_init)), \
+            mock.patch.object(j_pipeline_mod, "vae_init", zeros_like_init(j_vae.vae_init)):
+        jpipe = JaxPipeline(JAttrDict(cfg_dict), datasize=64, steps=steps,
+                            decode_dtype={torch.float32: jnp.float32,
+                                          torch.bfloat16: jnp.bfloat16}.get(decode_dtype, decode_dtype))
+    assert jpipe.vae_cfg.ch == 32
+    tc = jpipe.tcfg
+    vae_tree = seeded_tree(lambda k: j_vae.vae_init(k, jpipe.vae_cfg), seed)
+    tok_tree = seeded_tree(
+        lambda k: tokenizer_init(k, tc), seed + 1,
+        {**encoder_tables(tc.encoder, ("encoder",)), **mmdit_tables(tc.decoder, ("model",))})
+    jpipe.vae_params = jax_tree(vae_tree)
+    jpipe.params = jax_tree(tok_tree)
+    jpipe._ctx_mods = precompute_context_mods(jpipe.params["model"], tc.decoder)
+    if decode_dtype != torch.float32:
+        jpipe.params["model"] = jax.tree_util.tree_map(
+            lambda a: a.astype(jnp.bfloat16), jpipe.params["model"])
+    if decode_dtype == "int8":
+        jpipe.params["model"] = quantize_params_tree(jpipe.params["model"])
+
+    tpipe = SelftokPipeline(AttrDict(cfg_dict), datasize=64, steps=steps, device="cpu",
+                            decode_dtype=decode_dtype)
+    tpipe.set_weights(convert.tokenizer_from_jax_tree(tok_tree, tpipe.tcfg),
+                      convert.vae_from_jax_tree(vae_tree, VAEConfig(ch=32)))
+    return jpipe, tpipe
+
+
+def jax_decode(jpipe, ids, noise, cfg_scale=None):
+    """(latents, images) of the JAX pipeline for given start noise: its
+    jitted decode with the final VAE step taken off, then its own
+    decode_latents."""
+    import jax
+    import jax.numpy as jnp
+
+    keep = jpipe._latents_to_images
+    jpipe._latents_to_images = lambda vp, x: x
+    try:
+        fn = jax.jit(jpipe._decode_impl, static_argnames=("cfg_scale",))
+        lat = fn(jpipe.params, jpipe._ctx_mods, jpipe.vae_params, jnp.asarray(ids),
+                 jnp.asarray(noise), cfg_scale=cfg_scale)
+        lat = jax.block_until_ready(lat)
+    finally:
+        jpipe._latents_to_images = keep
+    return to_np(lat), to_np(jpipe.decode_latents(lat))
+
+
+def jax_render(jpipe, ids):
+    """(latents, images) of the JAX pipeline's one-step renderer, as
+    jax_decode does it for the diffusion decode."""
+    import jax
+    import jax.numpy as jnp
+
+    keep = jpipe._latents_to_images
+    jpipe._latents_to_images = lambda vp, x: x
+    try:
+        lat = jax.block_until_ready(jax.jit(jpipe._render_impl)(
+            jpipe.params, jpipe._ctx_mods, jpipe.vae_params, jnp.asarray(ids)))
+    finally:
+        jpipe._latents_to_images = keep
+    return to_np(lat), to_np(jpipe.decode_latents(lat))
