@@ -16,7 +16,8 @@ last line of its standard output is one JSON object
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
 ``--only kernels`` stops after the kernel phase; ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
-torch.profiler pass over one warm bf16 decode and one warm int8 decode.
+torch.profiler pass over one warm bf16 decode and one warm int8 decode;
+``--q8-sweep`` times every ``q8_matmul`` plan at the main path's shapes.
 """
 
 from __future__ import annotations
@@ -236,22 +237,39 @@ def q8_bound(M, K, N, x_item):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def q8_case(q8, name, M, K, N, xdt, bdt, gen, timed, edge=False):
+def q8_quantize_bound(M, K, Kp, x_item):
+    """The quantize pass alone: read x, write xq and sx."""
+    return (M * K * x_item + M * Kp + 4 * M) / PEAK_BYTES * 1e3
+
+
+def q8_case(q8, name, M, K, N, xdt, bdt, gen, timed, kind=None, plan=None):
+    """kind: None, "edge" (an all-zero row and a row of one large value) or
+    "rowmax_last" (rows whose maximum lies in the last K tile); plan: a
+    forced (bn, splits) instead of plan_q8's."""
     import torch.nn.functional as F
 
     dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev)
-    if edge:
+    if kind == "edge":
         x[0] = 0.0                    # all-zero row: output = bias
         x[1] *= 1e-3
         x[1, K // 2] = 300.0          # one large value: the rest of the row quantizes to 0
+    elif kind == "rowmax_last":
+        x[::2, K - 1] = 40.0          # every other row's scale comes from its last K tile
     x = x.to(xdt)
     # the decode quantizes bf16-rounded weights
     w = (torch.randn((N, K), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
     wq, sw = q8.quantize_weight(w)
     b = None if bdt is None else (torch.randn((N,), generator=gen, device=dev) * 0.02).to(bdt)
+    p = q8.plan_q8(M, K, N, x.element_size()) if plan is None else q8.Q8Plan(M, K, N, *plan)
+
+    def run():
+        if plan is None:
+            return q8.q8_matmul(x, wq, sw, b)
+        return q8._launch(x, wq, sw, b, torch.empty((M, N), dtype=xdt, device=dev), p)
+
     before = q8.launch_count
-    out = q8.q8_matmul(x, wq, sw, b)
+    out = run()
     torch.cuda.synchronize()
     if q8.launch_count != before + 1:
         raise RuntimeError(f"{name}: the wrapper did not count its launch")
@@ -268,33 +286,92 @@ def q8_case(q8, name, M, K, N, xdt, bdt, gen, timed, edge=False):
             raise RuntimeError(f"{name}: kernel differs from the plain version by more than one fp32 ulp")
     elif n_diff:
         raise RuntimeError(f"{name}: {n_diff} values differ from the plain version (max {err})")
-    if edge and not torch.equal(out[0], b.to(xdt)):
+    if kind == "edge" and not torch.equal(out[0], b.to(xdt)):
         raise RuntimeError(f"{name}: an all-zero row must give the bias")
+    # the first stage alone, against its plain version: every byte and scale
+    xq, sx = q8.q8_quantize_rows(x)
+    xq_p, sx_p = q8.q8_quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)):
+        raise RuntimeError(f"{name}: the quantize pass differs from its plain version")
     rec = {"case": name, "shape": [M, K, N], "dtype": str(xdt).replace("torch.", ""),
            "bias": None if bdt is None else str(bdt).replace("torch.", ""),
+           "plan": {"bn": p.bn, "splits": p.splits, "k_tiles": p.k_tiles, "grid": list(p.grid)},
            "max_abs_err": err, "values_differing": n_diff}
     if timed:
         bound, by = q8_bound(M, K, N, x.element_size())
-        xf = x.float()
-        sx = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True) * q8.INV127, 1e-8)
-        xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
         try:   # the product alone on pre-quantized operands: no quantization, no dequantization
-            library_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
+            xq_k = xq_p[:, :K].contiguous()
+            library_ms = time_ms(lambda: torch._int_mm(xq_k, wq.t()))
         except RuntimeError as e:
             log(f"    torch._int_mm refused {name}: {str(e).splitlines()[0]}")
             library_ms = None
         wd, bd = w.to(xdt), None if b is None else b.to(xdt)
         rec.update(
-            ms=time_ms(lambda: q8.q8_matmul(x, wq, sw, b)),
-            host_paced_ms=time_ms(lambda: q8.q8_matmul(x, wq, sw, b), hold=False),
+            ms=time_ms(run),
+            host_paced_ms=time_ms(run, hold=False),
+            quantize_ms=time_ms(lambda: q8.q8_quantize_rows(x)),
+            quantize_bound_ms=q8_quantize_bound(M, K, p.Kp, x.element_size()),
             plain_ms=time_ms(lambda: q8.q8_matmul_plain(x, wq, sw, b), reps=3, rounds=3),
             library_ms=library_ms,
             bound_ms=bound, bound_by=by)
+        rec["share"] = bound / rec["ms"]
         # the dense call the int8 path replaces: F.linear in x's type, unquantized weight
         rec[f"{rec['dtype'].replace('float32', 'fp32').replace('bfloat16', 'bf16')}_ms"] = \
             time_ms(lambda: F.linear(x, wd, bd))
     log(f"  q8_matmul {name}: {json.dumps(rec)}")
     return rec
+
+
+# launches of each product per cond call of the int8 decode (23 joint blocks,
+# the last block's x stream and context qkv, the context embedder, the final
+# linear): 191 in all
+Q8_PER_COND_CALL = {"x_qkv": 24, "x_proj": 24, "x_fc1": 24, "x_fc2": 24, "context_qkv": 24,
+                    "context_proj": 23, "context_fc1": 23, "context_fc2": 23,
+                    "context_embedder": 1, "final_layer_linear": 1}
+
+
+def q8_per_cond_call(recs):
+    """q8_matmul device time and bound summed over one cond call's 191
+    launches, the context at its largest bucket (M = 1024)."""
+    by = {r["case"]: r for r in recs}
+    if sum(Q8_PER_COND_CALL.values()) != 191:
+        raise RuntimeError("the per-call table must hold 191 launches")
+    ms = sum(n * by[c]["ms"] for c, n in Q8_PER_COND_CALL.items())
+    bound = sum(n * by[c]["bound_ms"] for c, n in Q8_PER_COND_CALL.items())
+    bf16 = sum(n * by[c]["bf16_ms"] for c, n in Q8_PER_COND_CALL.items())
+    log(f"  q8_matmul per cond call (191 launches, context M = 1024): {ms:.4f} ms device "
+        f"(bound {bound:.4f} ms, share {bound / ms:.3f}; bf16 F.linear {bf16:.4f} ms)")
+
+
+def q8_sweep(q8):
+    """Every plan's device time at the main path's shapes: the measurements
+    the planner's choices are checked against."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    shapes = [("x_qkv", 512, 1536, 4608), ("x_proj", 512, 1536, 1536), ("x_fc1", 512, 1536, 6144),
+              ("x_fc2", 512, 6144, 1536), ("context_qkv", 1024, 1536, 4608),
+              ("context_proj", 1024, 1536, 1536), ("context_fc1", 1024, 1536, 6144),
+              ("context_fc2", 1024, 6144, 1536), ("context_embedder", 1024, 16, 1536),
+              ("final_layer_linear", 512, 1536, 64), ("context_256_fc1", 256, 1536, 6144),
+              ("renderer_x_qkv", 2048, 1536, 4608), ("renderer_context_fc2", 4096, 6144, 1536)]
+    for name, M, K, N in shapes:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        wq, sw = q8.quantize_weight(torch.randn((N, K), generator=gen, device="cuda"))
+        b = torch.zeros((N,), dtype=torch.bfloat16, device="cuda")
+        out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+        chosen = q8.plan_q8(M, K, N, 2)
+        times = {}
+        for bn in q8.BNS:
+            for splits in (1, 2, 3, 4, 6, 8, 12):
+                if splits <= chosen.k_tiles:
+                    plan = q8.Q8Plan(M, K, N, bn, splits)
+                    times[f"{bn}/{splits}"] = time_ms(lambda: q8._launch(x, wq, sw, b, out, plan))
+        best = min(times, key=times.get)
+        key = f"{chosen.bn}/{chosen.splits}"
+        row = {"case": name, "shape": [M, K, N], "chosen": key, "chosen_ms": times.get(key),
+               "best": best, "best_ms": times[best], "ms": times}
+        log(f"  q8 sweep {json.dumps(row)}")
 
 
 def conv_bound(B, H, W, C, dtype):
@@ -386,23 +463,42 @@ def kernel_phase():
     ]
     vq_recs = [vq_case(vk, n, N, C, gen, timed, kind) for n, N, C, timed, kind in vq]
     q8_cases = [
-        # (name, M, K, N, x type, bias type, timed, edge rows): the int8
-        # decode's shapes first (batch 2: x stream M = 512, context M = 2*Lc
-        # <= 1024), then the renderer's (batch 8: x stream M = 2048, context
-        # M = 4096, its context embedder in fp32)
-        ("x_qkv", 512, 1536, 4608, bf, bf, True, False),
-        ("x_fc2", 512, 6144, 1536, bf, bf, True, False),
-        ("context_fc1", 1024, 1536, 6144, bf, bf, True, False),
-        ("context_embedder", 1024, 16, 1536, bf, bf, True, False),
-        ("final_layer_linear", 512, 1536, 64, bf, bf, True, False),
-        ("renderer_context_embedder_fp32", 4096, 16, 1536, f32, bf, True, False),
-        ("renderer_x_qkv", 2048, 1536, 4608, bf, bf, True, False),
-        ("renderer_context_fc2", 4096, 6144, 1536, bf, bf, True, False),
-        ("ragged_edge_rows_bf16", 300, 200, 500, bf, bf, False, True),
-        ("ragged_edge_rows_fp32", 300, 200, 500, f32, f32, False, True),
-        ("unaligned_k_no_bias", 33, 37, 70, bf, None, False, False),
+        # (name, M, K, N, x type, bias type, timed, kind, forced (bn, splits)):
+        # the int8 decode's ten products first (batch 2: x stream M = 512,
+        # context M = 2*Lc <= 1024), then the renderer's (batch 8: x stream
+        # M = 2048, context M = 4096, its context embedder in fp32)
+        ("x_qkv", 512, 1536, 4608, bf, bf, True, None, None),
+        ("x_proj", 512, 1536, 1536, bf, bf, True, None, None),
+        ("x_fc1", 512, 1536, 6144, bf, bf, True, None, None),
+        ("x_fc2", 512, 6144, 1536, bf, bf, True, None, None),
+        ("context_qkv", 1024, 1536, 4608, bf, bf, True, None, None),
+        ("context_proj", 1024, 1536, 1536, bf, bf, True, None, None),
+        ("context_fc1", 1024, 1536, 6144, bf, bf, True, None, None),
+        ("context_fc2", 1024, 6144, 1536, bf, bf, True, None, None),
+        ("context_embedder", 1024, 16, 1536, bf, bf, True, None, None),
+        ("final_layer_linear", 512, 1536, 64, bf, bf, True, None, None),
+        ("renderer_context_embedder_fp32", 4096, 16, 1536, f32, bf, True, None, None),
+        ("renderer_x_qkv", 2048, 1536, 4608, bf, bf, True, None, None),
+        ("renderer_context_fc2", 4096, 6144, 1536, bf, bf, True, None, None),
+        ("ragged_edge_rows_bf16", 300, 200, 500, bf, bf, False, "edge", None),
+        ("ragged_edge_rows_fp32", 300, 200, 500, f32, f32, False, "edge", None),
+        ("unaligned_k_no_bias", 33, 37, 70, bf, None, False, None, None),
+        ("rowmax_in_last_k_tile", 512, 1536, 1536, bf, bf, False, "rowmax_last", None),
+        # K splits that do not divide the K tiles: 10 over 4 (3, 3, 2, 2), 32
+        # over 7 (ragged M and N, fp32), 48 over 5 (the widest tile), 12 over
+        # 5 with a tile width of 96 and ragged M, N and no bias
+        ("uneven_split_k", 256, 1280, 256, bf, bf, False, None, (128, 4)),
+        ("uneven_split_k_fp32", 300, 4000, 500, f32, f32, False, "edge", (64, 7)),
+        ("uneven_split_k_wide", 512, 6144, 1536, bf, bf, False, None, (192, 5)),
+        ("uneven_split_k_bn96_ragged", 200, 1536, 333, bf, None, False, None, (96, 5)),
+        # a tile width of 144 over ragged M and N
+        ("bn144_ragged_fp32", 200, 200, 500, f32, f32, False, "edge", (144, 1)),
     ]
-    q8_recs = [q8_case(q8, *c[:6], gen, c[6], c[7]) for c in q8_cases]
+    for c in q8_cases:
+        if c[0].startswith("uneven") and q8.Q8Plan(*c[1:4], *c[8]).k_tiles % c[8][1] == 0:
+            raise RuntimeError(f"{c[0]}: the K tiles must not divide evenly among the splits")
+    q8_recs = [q8_case(q8, *c[:6], gen, c[6], c[7], c[8]) for c in q8_cases]
+    q8_per_cond_call(q8_recs)
     conv_cases = [
         # the VAE encoder's conv_in at batch 8 (not wired: no path runs it)
         ("vae_conv_in_bf16", 8, 256, 256, 128, bf, True),
@@ -439,6 +535,11 @@ def profile_decode(pipe, ids, noise, warm_s, label):
     log(f"  profile of one warm {label} decode (batch {ids.shape[0]}, 50 steps): device busy "
         f"{total / 1e6:.3f} s of {warm_s:.3f} s wall = {total / 1e6 / warm_s:.3f}; "
         f"{sum(r[1] for r in rows)} device kernels")
+    q8_rows = [r for r in rows if "q8_matmul" in r[2]]
+    if q8_rows:
+        q8_us = sum(r[0] for r in q8_rows)
+        log(f"    q8_matmul kernels together: {q8_us / 1e3:.2f} ms ({q8_us / total:.3f} of device "
+            f"time) over {sum(r[1] for r in q8_rows)} launches")
     for us, n, key in rows[:12]:
         log(f"    {us / 1e3:9.2f} ms {us / total:6.3f} x{n:<6d} {key[:110]}")
 
@@ -771,6 +872,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm bf16 and one warm int8 decode: "
                          "device time by kernel, busy share")
+    ap.add_argument("--q8-sweep", action="store_true",
+                    help="also time every q8_matmul plan (tile width, K splits) "
+                         "at the main path's shapes")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -792,6 +896,9 @@ def main():
     # phase 3: kernels against their plain versions
     log("phase kernels:")
     attn_recs, vq_recs, q8_recs, conv_recs = kernel_phase()
+    if args.q8_sweep:
+        from selftoktokenizer_tpu_torch.ops import q8_matmul as q8
+        q8_sweep(q8)
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     by_path = {}
 
@@ -817,7 +924,8 @@ def main():
         headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
                  "selftoktokenizer_tpu/ops/flash_attention.py:102"),
         headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
-                 "selftoktokenizer_tpu/ops/q8_matmul.py:75"),
+                 "selftoktokenizer_tpu/ops/q8_matmul.py:75",
+                 quantize_ms=q8_recs[0]["quantize_ms"]),
         # no path runs it, in the JAX package either: held here, wired nowhere
         headline("conv3ch_3x3", conv_recs, src + "conv3ch.cu",
                  "selftoktokenizer_tpu/ops/conv3ch.py:69", wired=False),

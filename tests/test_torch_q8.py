@@ -151,8 +151,9 @@ def _x(seed, M, K, kind="normal"):
 
 # (M, K, N): the Pallas kernel pads M to 256 and N to its 512 blocks, so
 # ragged M, N = 768 (a remainder column block, as tests/test_regressions.py
-# pins) and K = 16 (the context embedder) are each a case
-SHAPES = [(77, 128, 768), (256, 16, 512), (300, 200, 500)]
+# pins) and K = 16 (the context embedder) are each a case; K = 37 pads the
+# quantized rows to 48, K = 1536 is the decode's
+SHAPES = [(77, 128, 768), (256, 16, 512), (300, 200, 500), (33, 37, 70), (64, 1536, 512)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -169,6 +170,104 @@ def test_q8_matmul_plain_equals_pallas_interpret(M, K, N, dtype):
     assert got.dtype == td and tuple(got.shape) == (M, N)
     np.testing.assert_array_equal(bits(got), bits(want))
     assert not to_np(got)[0].any()
+    # the kernel's two stages: quantize each row once, then the product
+    xq, sx = q8.q8_quantize_rows_plain(T(x, td))
+    assert xq.dtype == torch.int8 and tuple(xq.shape) == (M, q8.padded_k(K))
+    assert not xq[:, K:].any()
+    two = q8.q8_matmul_quantized_plain(xq, sx, T(wq.T), T(sw), dtype=td)
+    np.testing.assert_array_equal(bits(two), bits(want))
+
+
+@pytest.mark.parametrize("bias_dtype", [None, "float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_quantize_then_product_equals_q8_matmul_plain(M, K, N, dtype, bias_dtype):
+    rng = np.random.default_rng(M * K + N)
+    x = _x(M + 1, M, K, "edge")
+    x[2, K - 1] = 50.0                   # a row whose maximum lies in its last K tile
+    w = (rng.standard_normal((N, K)) * K ** -0.5).astype(np.float32)
+    td = getattr(torch, dtype)
+    wq, sw = q8.quantize_weight(T(w))
+    b = None if bias_dtype is None else T(rng.standard_normal(N) * 0.02, getattr(torch, bias_dtype))
+    xq, sx = q8.q8_quantize_rows(T(x, td))           # a CPU tensor: the plain version
+    assert sx.dtype == torch.float32 and tuple(sx.shape) == (M,)
+    assert int(xq[2, K - 1]) == 127 and float(sx[0]) == np.float32(1e-8)
+    got = q8.q8_matmul_quantized_plain(xq, sx, wq, sw, b, dtype=td)
+    want = q8.q8_matmul_plain(T(x, td), wq, sw, b)
+    assert got.dtype == want.dtype == td
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+# the int8 decode's products (batch 2: x stream M = 512, context M = 2 x its
+# bucket's length, up to 1024; the renderer at batch 8), then ragged ones
+PLAN_SHAPES = [
+    (512, 1536, 4608), (512, 1536, 1536), (512, 1536, 6144), (512, 6144, 1536),
+    (1024, 1536, 4608), (1024, 1536, 1536), (1024, 1536, 6144), (1024, 6144, 1536),
+    (1024, 16, 1536), (512, 1536, 64), (256, 1536, 4608), (768, 6144, 1536),
+    (2048, 1536, 4608), (4096, 6144, 1536), (4096, 16, 1536),
+    (300, 200, 500), (33, 37, 70), (1, 16, 8), (129, 4097, 193),
+]
+# forced plans: K splits that do not divide the K tiles evenly, the widest
+# split, the narrow and wide tiles
+FORCED_PLANS = [(256, 1280, 256, 128, 4), (512, 6144, 1536, 192, 5), (512, 1536, 64, 64, 12),
+                (33, 37, 70, 192, 1), (300, 4000, 500, 64, 7), (200, 200, 500, 144, 1),
+                (200, 1536, 333, 96, 5)]
+
+
+def _plans():
+    for M, K, N in PLAN_SHAPES:
+        for item in (2, 4):
+            yield pytest.param(q8.plan_q8(M, K, N, item), id=f"{M}x{K}x{N}-{item}B")
+    for M, K, N, bn, splits in FORCED_PLANS:
+        yield pytest.param(q8.Q8Plan(M, K, N, bn, splits), id=f"{M}x{K}x{N}-bn{bn}-split{splits}")
+
+
+@pytest.mark.parametrize("plan", list(_plans()))
+def test_plan_covers_every_output_and_k_tile_once(plan):
+    M, K, N, bn, splits = plan.M, plan.K, plan.N, plan.bn, plan.splits
+    # K padding: rows of a 16-byte multiple, less than one step past K
+    assert plan.Kp % 16 == 0 and K <= plan.Kp < K + 16
+    assert (plan.k_tiles - 1) * q8.BK < plan.Kp <= plan.k_tiles * q8.BK
+    # the tiles cover M x N exactly once, and none lies wholly outside
+    cover = np.zeros((M, N), np.int32)
+    for i in range(plan.tiles_m):
+        for j in range(plan.tiles_n):
+            assert i * q8.BM < M and j * bn < N
+            cover[i * q8.BM:(i + 1) * q8.BM, j * bn:(j + 1) * bn] += 1
+    assert (cover == 1).all()
+    # the splits cover every K tile exactly once, each at least one
+    ranges = [plan.k_range(s) for s in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_tiles
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[s][1] == ranges[s + 1][0] for s in range(splits - 1))
+    assert max(b - a for a, b in ranges) - min(b - a for a, b in ranges) <= 1
+    # scratch: xq, sx, counters, partials, 256-byte aligned and disjoint
+    tiles = plan.tiles_m * plan.tiles_n
+    assert plan.n_counters == (tiles if splits > 1 else 0)
+    assert plan.partial_bytes == (splits * tiles * q8.BM * bn * 4 if splits > 1 else 0)
+    offs = [0, plan.sx_offset, plan.counters_offset, plan.partials_offset]
+    sizes = [M * plan.Kp, 4 * M, 4 * plan.n_counters, plan.partial_bytes]
+    assert all(o % 256 == 0 for o in offs)
+    assert all(offs[i] + sizes[i] <= offs[i + 1] for i in range(3))
+    assert plan.scratch_bytes == offs[3] + sizes[3]
+    # the card's limits
+    assert bn in q8.BNS and bn % 8 == 0 and 1 <= splits <= min(plan.k_tiles, 65535)
+    assert plan.tiles_m < 2 ** 31 and plan.tiles_n <= q8.GRID_YZ_LIMIT
+    assert q8.smem_bytes(bn) <= q8.SMEM_LIMIT and q8.THREADS <= 1024
+    assert plan.grid == (plan.tiles_m, plan.tiles_n, splits)
+
+
+def test_planner_splits_k_where_the_tiles_leave_the_card_idle():
+    # the x stream's fc2 (K = 6144) has 48 tiles of 128 x 128 for 132 SMs and
+    # 48 K tiles each: its K is split
+    fc2 = q8.plan_q8(512, 6144, 1536)
+    assert fc2.splits > 1 and fc2.tiles_m * fc2.tiles_n * fc2.splits <= q8.SMS
+    # the final linear (N = 64) takes one 64-wide tile column
+    assert q8.plan_q8(512, 1536, 64).bn == 64
+    # a shape that fills the card many times over is not split
+    assert q8.plan_q8(4096, 1536, 6144).splits == 1
+    with pytest.raises(ValueError):
+        q8.plan_q8(0, 16, 16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
