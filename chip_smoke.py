@@ -74,6 +74,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0].strip()
 
 
+_SM_CLOCK_HZ = []
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it (read once)."""
+    if not _SM_CLOCK_HZ:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+        _SM_CLOCK_HZ.append(float(out.stdout.strip().splitlines()[0]) * 1e6)
+    return _SM_CLOCK_HZ[0]
+
+
 HOLD_CYCLES = 40_000_000   # about 20 ms of device spin at the H100's clock
 
 
@@ -115,19 +130,35 @@ def attn_bound(B, H, Lq, Lk, D, dtype, masked):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def attn_exp_bound(B, H, Lq, Lk):
+    """The exponentials alone: one per score on the special-function units,
+    16 a clock on each of the 132 SMs."""
+    return B * H * Lq * Lk / (132 * 16 * sm_clock_hz()) * 1e3
+
+
 def vq_bound(N, C, D=16):
     t_ops = 2.0 * N * C * D / PEAK_FP32_FLOPS
     t_bytes = (N * D * 4 + C * D * 4 + N * 4) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed):
+def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="dense"):
+    """layout "qkv": q, k and v are the strided views the models' qkv split
+    makes of one [B, L, 3, H, D] tensor (row stride 3*H*D, head stride D)."""
     import torch.nn.functional as F
 
     dev = "cuda"
-    q = torch.randn((B, H, Lq, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
-    k = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
-    v = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    if layout == "qkv":
+        if Lq != Lk:
+            raise RuntimeError(f"{name}: a qkv split has one length")
+        qkv = torch.randn((B, Lq, 3, H, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        if q.stride() != (Lq * 3 * H * D, D, 3 * H * D, 1):
+            raise RuntimeError(f"{name}: not the qkv split's strides")
+    else:
+        q = torch.randn((B, H, Lq, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+        k = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+        v = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
     mask = None
     if mask_kind == "prefix":
         # the decode path's masks: a prefix of the context keys active, all x keys active
@@ -163,8 +194,14 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed):
             raise RuntimeError(f"{name}: fully masked row is not the uniform mean ({uerr})")
     if err > tol:
         raise RuntimeError(f"{name}: kernel differs from the plain version by {err} > {tol}")
+    # the output is [B, Lq, H, D] memory: merging the heads is a view
+    if out.permute(0, 2, 1, 3).stride() != (Lq * H * D, H * D, D, 1):
+        raise RuntimeError(f"{name}: the output is not laid out [B, Lq, H, D]")
     rec = {"case": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
-           "mask": mask_kind, "max_abs_err": err, "tol": tol}
+           "mask": mask_kind, "layout": layout, "max_abs_err": err, "tol": tol}
+    if dtype == torch.bfloat16:
+        rec["launch"] = {"stages": fa.STAGES[D], "grid": [-(-Lq // fa.BM), B * H],
+                         "smem": fa.smem_bytes(D)}
     if timed:
         bound, by = attn_bound(B, H, Lq, Lk, D, dtype, mask is not None)
         am = None if mask is None else mask[:, None, None, :]
@@ -173,7 +210,8 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed):
             host_paced_ms=time_ms(lambda: fa.flash_sdpa_key_mask(q, k, v, mask), hold=False),
             plain_ms=time_ms(lambda: fa.flash_sdpa_key_mask_plain(q, k, v, mask), reps=3, rounds=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
-            bound_ms=bound, bound_by=by)
+            bound_ms=bound, bound_by=by, exp_bound_ms=attn_exp_bound(B, H, Lq, Lk))
+        rec["share"] = bound / rec["ms"]
     log(f"  attention {name}: {json.dumps(rec)}")
     return rec
 
@@ -446,14 +484,31 @@ def kernel_phase():
         ("renderer_context_bf16", 8, 24, 512, 512, 64, bf, "ones", True),
         ("renderer_x_bf16", 8, 24, 256, 768, 64, bf, "ones", True),
         ("decode_joint_fp32_masked", 2, 24, 768, 768, 64, f32, "prefix", True),
+        # the decode's other context buckets: joint lengths 384, 512 and 640
+        ("decode_joint_384_bf16_masked", 2, 24, 384, 384, 64, bf, "prefix", True),
+        ("decode_joint_512_bf16_masked", 2, 24, 512, 512, 64, bf, "prefix", True),
+        ("decode_joint_640_bf16_masked", 2, 24, 640, 640, 64, bf, "prefix", True),
         ("ragged_bf16", 2, 3, 200, 333, 64, bf, "random", False),
+        # Lq and Lk a multiple of neither tile: the last query tile holds 13
+        # rows, the last key tile 1 key
+        ("ragged_tiles_bf16", 1, 2, 77, 129, 64, bf, "prefix", False),
         ("ragged_fp32", 2, 3, 200, 333, 64, f32, "random", False),
         ("fully_masked_row_bf16", 2, 4, 128, 192, 64, bf, "full_row", False),
         ("fully_masked_row_fp32", 2, 4, 128, 192, 64, f32, "full_row", False),
         ("head_dim_128_bf16", 1, 4, 130, 257, 128, bf, "random", False),
         ("head_dim_128_fp32", 1, 4, 130, 257, 128, f32, "random", False),
     ]
+    # the strided views of the qkv split, passed straight through: the
+    # renderer's context rows and the uncond x-only call
+    attn_qkv = [
+        ("qkv_views_renderer_context_bf16", 8, 24, 512, 512, 64, bf, "ones", True),
+        ("qkv_views_uncond_bf16", 2, 24, 256, 256, 64, bf, None, True),
+        ("qkv_views_ragged_bf16_masked", 2, 3, 200, 200, 64, bf, "random", False),
+    ]
+    if 77 % fa.BM == 0 or 129 % fa.BN == 0:
+        raise RuntimeError("ragged_tiles_bf16 must be ragged in both tiles")
     attn_recs = [attn_case(fa, *c[:8], gen, c[8]) for c in attn]
+    attn_recs += [attn_case(fa, *c[:8], gen, c[8], layout="qkv") for c in attn_qkv]
     vq = [
         ("flagship_b8", 4096, 32768, True, "random"),
         ("flagship_b32", 16384, 32768, True, "random"),
@@ -535,6 +590,11 @@ def profile_decode(pipe, ids, noise, warm_s, label):
     log(f"  profile of one warm {label} decode (batch {ids.shape[0]}, 50 steps): device busy "
         f"{total / 1e6:.3f} s of {warm_s:.3f} s wall = {total / 1e6 / warm_s:.3f}; "
         f"{sum(r[1] for r in rows)} device kernels")
+    attn_rows = [r for r in rows if "flash_bf16_kernel" in r[2] or "flash_f32_kernel" in r[2]]
+    if attn_rows:
+        a_us = sum(r[0] for r in attn_rows)
+        log(f"    attention kernel: {a_us / 1e3:.2f} ms ({a_us / total:.3f} of device time) over "
+            f"{sum(r[1] for r in attn_rows)} launches")
     q8_rows = [r for r in rows if "q8_matmul" in r[2]]
     if q8_rows:
         q8_us = sum(r[0] for r in q8_rows)
@@ -922,7 +982,7 @@ def main():
         headline("vq_argmax", vq_recs, src + "vq_argmax.cu",
                  "selftoktokenizer_tpu/ops/vq_kernels.py:86"),
         headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
-                 "selftoktokenizer_tpu/ops/flash_attention.py:102"),
+                 "selftoktokenizer_tpu/ops/flash_attention.py:102", share=attn_recs[0]["share"]),
         headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
                  "selftoktokenizer_tpu/ops/q8_matmul.py:75",
                  quantize_ms=q8_recs[0]["quantize_ms"]),

@@ -71,14 +71,13 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;                  // output rows per block: two warpgroups of 64
 constexpr int BK = 128;                  // int8 depth of a K tile: one 128-byte swizzle row
@@ -227,73 +226,9 @@ q8_matmul_quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float*
 
 // -------------------------------------------------------------------- gemm ---
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed; a wait of
-// more than about ten seconds can only be a fault, and traps (the launch then
-// fails with an error instead of holding the card)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    const long long t0 = clock64();
-    while (true) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-        if (done) return;
-        if (clock64() - t0 > (1ll << 34)) __trap();
-    }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4}], [%2];\n"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-        : "memory");
-}
-
 // named barrier 1 over the two consumer warpgroups (the producer warp has left)
 __device__ __forceinline__ void consumer_sync() {
     asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
-// rows 128 bytes apart, 8-row groups 1024 bytes apart (stride byte offset 64
-// in 16-byte units), leading byte offset unused (1), layout type 1 (B128)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t saddr) {
-    return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16)
-         | (static_cast<uint64_t>(64) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // m64nBNk32 s32 += s8 * s8, A and B K-major in shared memory; thread t of the
@@ -452,15 +387,15 @@ q8_matmul_gemm(const __grid_constant__ CUtensorMap tmap_x, const __grid_constant
             mbar_init(smem_u32(&full[s]), 1);
             mbar_init(smem_u32(&empty[s]), CONSUMERS / 32);   // one arrival per consumer warp
         }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
 
     if (warp == CONSUMERS / 32) {
         // producer: one thread keeps up to STAGES tiles of xq and wq in flight
         if (lane == 0) {
-            asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmap_w)) : "memory");
-            asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmap_x)) : "memory");
+            prefetch_map(&tmap_w);
+            prefetch_map(&tmap_x);
             // the weights do not depend on the quantize pass: the first
             // stages' weight tiles are requested before waiting for it
             const int first = nk < STAGES ? nk : STAGES;
@@ -497,7 +432,7 @@ q8_matmul_gemm(const __grid_constant__ CUtensorMap tmap_x, const __grid_constant
         mbar_wait(smem_u32(&full[s]), (i / STAGES) & 1);
         const uint32_t a = smem_u32(smem + s * STAGE_BYTES + wg * 64 * BK);
         const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
-        fence_acc(acc);
+        fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk)
@@ -506,11 +441,11 @@ q8_matmul_gemm(const __grid_constant__ CUtensorMap tmap_x, const __grid_constant
         // keep this tile's products in flight; the previous tile's are done,
         // and its stage goes back to the producer
         wgmma_wait1();
-        fence_acc(acc);
+        fence_regs(acc);
         if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(i + STAGES - 1) % STAGES]));
     }
     wgmma_wait0();
-    fence_acc(acc);
+    fence_regs(acc);
 
     if (splits > 1) {
         // write this split's partial tile in fragment order (coalesced 16-byte
@@ -602,47 +537,13 @@ q8_matmul_gemm(const __grid_constant__ CUtensorMap tmap_x, const __grid_constant
 
 // ------------------------------------------------------------------- host ---
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = []() -> EncodeTiled {
-        void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-        if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-        return h == nullptr ? nullptr
-                            : reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-    }();
-    return fn;
-}
-
-std::mutex g_maps_lock;
-std::map<std::tuple<uintptr_t, uint64_t, uint64_t, uint32_t>, CUtensorMap> g_maps;
-
 // the map of an int8 [rows, cols] row-major array (cols a multiple of 16)
-// read in boxes of 128 bytes x box_rows, 128-byte swizzle; 0 or an error code
-int tensor_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
-    const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(ptr), rows, cols, box_rows);
-    std::lock_guard<std::mutex> guard(g_maps_lock);
-    const auto it = g_maps.find(key);
-    if (it != g_maps.end()) {
-        *map = it->second;
-        return 0;
-    }
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return -2;
-    const cuuint64_t dims[2] = {cols, rows};
-    const cuuint64_t strides[1] = {cols};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), box_rows};
-    const cuuint32_t estr[2] = {1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                          box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return -1000 - static_cast<int>(r);
-    if (g_maps.size() >= 4096) g_maps.clear();
-    g_maps.emplace(key, *map);
-    return 0;
+// read in boxes of 128 bytes x box_rows; 0 or an error code
+int q8_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+    const uint64_t dims[2] = {cols, rows};
+    const uint64_t strides[1] = {cols};
+    const uint32_t box[2] = {static_cast<uint32_t>(BK), box_rows};
+    return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims, strides, box);
 }
 
 template <typename T, int C>
@@ -687,14 +588,9 @@ int launch_gemm(const CUtensorMap& tx, const CUtensorMap& tw, const void* sx, co
                 int M, int N, int k_tiles, int splits, cudaStream_t s) {
     constexpr int SMEM = smem_bytes(BN);
     static bool ready[64] = {};                  // the attribute is set once per device
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    cudaError_t e = static_cast<cudaError_t>(
+        set_smem_once(reinterpret_cast<const void*>(q8_matmul_gemm<T, BN>), SMEM, ready));
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= 64 || !ready[dev]) {
-        e = cudaFuncSetAttribute(q8_matmul_gemm<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        if (dev < 64) ready[dev] = true;
-    }
     const int out_vec = (static_cast<long long>(N) * sizeof(T)) % 16 == 0
                         && reinterpret_cast<uintptr_t>(out) % 16 == 0;
     const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
@@ -771,9 +667,9 @@ extern "C" int stk_q8_matmul(const void* x, const void* wq, const void* sw, cons
                            || reinterpret_cast<uintptr_t>(partials) % 16 != 0)))
         return -1;
     CUtensorMap tx, tw;
-    int rc = tensor_map(&tx, xq, M, Kp, BM);
+    int rc = q8_map(&tx, xq, M, Kp, BM);
     if (rc != 0) return rc;
-    rc = tensor_map(&tw, wq, N, Kp, bn);
+    rc = q8_map(&tw, wq, N, Kp, bn);
     if (rc != 0) return rc;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_counters = splits > 1 ? ((M + BM - 1) / BM) * ((N + bn - 1) / bn) : 0;

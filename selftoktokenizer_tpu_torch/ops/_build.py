@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +46,30 @@ def _nvcc():
     return exe
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path, seen=None):
+    """The bytes of a source and of every header under csrc/ it includes
+    (transitively, each once), in include order."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    parts = [text]
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if dep not in seen and os.path.exists(dep):
+            parts.extend(_sources(dep, seen))
+    return parts
+
+
 def _target(name):
+    """(source path, library path): the library's name carries a hash of the
+    source, the headers it includes and the flags, so a change to any of
+    them builds anew."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(_sources(src)) + " ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

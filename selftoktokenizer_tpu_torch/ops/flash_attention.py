@@ -10,18 +10,23 @@ to ``v.dtype`` before P V.
 
 Bound on an H100: 4*B*H*Lq*Lk*D FLOP (bf16 tensor cores, 989 TFLOP/s; fp32
 inputs run on the fp32 CUDA cores, 67 TFLOP/s) against
-(2*Lq + 2*Lk)*D*B*H*itemsize bytes at 3.35 TB/s; at the flagship shapes the
-operations bound it. The TPU kernel holds a head's whole K and V in fast
-memory and does one softmax pass; on Hopper a block has 227 KB, so the
-kernel (``csrc/flash_attention.cu``) walks K/V in 64-key tiles through
-shared memory with an online softmax and never writes the [Lq, Lk] scores to
-device memory. Any Lq and Lk are accepted: the ragged tiles are masked in
-the kernel. Forward only; the backward goes with training.
+(2*Lq + 2*Lk)*D*B*H*itemsize bytes at 3.35 TB/s, and B*H*Lq*Lk exponentials
+(16 a clock on each SM's special-function units). The TPU kernel holds a
+head's whole K and V in fast memory and does one softmax pass; on Hopper a
+block has 227 KB, so the kernel (``csrc/flash_attention.cu``) walks K/V in
+tiles through a TMA-fed ring with an online softmax, runs both products
+with ``wgmma`` in bf16 and overlaps one tile's exponentials with the
+previous tile's P V. Any Lq and Lk are accepted: the ragged tiles are
+masked in the kernel. q, k and v may be strided views (the qkv split's);
+the output is allocated in [B, Lq, H, D] memory and returned as a
+[B, H, Lq, D] view, so merging the heads after it is free. Forward only;
+the backward goes with training.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,6 +39,24 @@ launch_count = 0
 NEG = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+# the bf16 kernel's launch (csrc/flash_attention.cu): a block of one consumer
+# warpgroup and a producer warp per BM query rows of a (batch, head), K/V
+# tiles of BN keys through a ring of STAGES[D]
+SMEM_LIMIT = 232448            # bytes of shared memory a block can have
+GRID_Y_LIMIT = 65535
+BM = 64
+BN = 64
+STAGES = {64: 4, 128: 2}
+
+
+def smem_bytes(D):
+    """The bf16 kernel's dynamic shared memory at head dim D (Tile<D>::SMEM):
+    alignment slack, Q, the ring, each stage's key bias, the barriers, each
+    stage's flag."""
+    sub, st = D // 64, STAGES[D]
+    return 1024 + sub * BM * 128 + st * 2 * sub * BN * 128 + st * BN * 4 + (1 + 2 * st) * 8 + st * 4
 
 
 def supported(q, k):
@@ -59,27 +82,56 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_stk_typed", False):
         lib.stk_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 13
+            + [ctypes.c_void_p])
         lib.stk_flash_attention.restype = ctypes.c_int
         lib._stk_typed = True
     return lib
 
 
-def _strides(name, t):
+def _strides(name, shape, stride, item):
     """(batch, head, row) strides in elements of a [B,H,L,D] tensor whose
-    last dimension is dense; rows must start on 16-byte boundaries."""
-    if t.stride(3) != 1:
+    last dimension is dense; rows must start on 16-byte boundaries. A
+    dimension of size 1 is never stepped along: its stride is replaced by
+    one the tensor maps accept."""
+    if stride[3] != 1:
         raise ValueError(f"flash_sdpa_key_mask: {name} must be dense in its last dimension")
-    item = t.element_size()
-    if t.data_ptr() % 16 or any((s * item) % 16 for s in t.stride()[:3]):
+    size1 = shape[3] * shape[2] * shape[1]
+    strides = tuple(st if n > 1 else size1 for st, n in zip(stride[:3], shape[:3]))
+    if any((st * item) % 16 for st in strides):
         raise ValueError(f"flash_sdpa_key_mask: {name} rows must be 16-byte aligned")
-    return t.stride()[:3]
+    return strides
+
+
+@functools.lru_cache(maxsize=4096)
+def _call_args(q_shape, k_shape, q_stride, k_stride, v_stride, item, dtype_code):
+    """The C call's sizes and strides for one layout, checked once."""
+    B, H, Lq, D = q_shape
+    Lk = k_shape[2]
+    o_shape = (B, H, Lq, D)
+    o_stride = (Lq * H * D, D, H * D, 1)        # [B, Lq, H, D] memory
+    return (B, H, Lq, Lk, D, dtype_code,
+            *_strides("q", q_shape, q_stride, item), *_strides("k", k_shape, k_stride, item),
+            *_strides("v", k_shape, v_stride, item), *_strides("out", o_shape, o_stride, item),
+            Lk)
+
+
+def _check_rc(rc):
+    if rc == 0:
+        return
+    if rc == -1:
+        raise RuntimeError("flash_sdpa_key_mask: the kernel refused its arguments")
+    if rc == -2:
+        raise RuntimeError("flash_sdpa_key_mask: cuTensorMapEncodeTiled not found in libcuda")
+    if rc <= -1000:
+        raise RuntimeError(f"flash_sdpa_key_mask: cuTensorMapEncodeTiled failed (CUresult {-1000 - rc})")
+    raise RuntimeError(f"flash_sdpa_key_mask: kernel launch failed (cudaError {rc})")
 
 
 def flash_sdpa_key_mask(q, k, v, key_mask=None):
     """q: [B,H,Lq,D]; k, v: [B,H,Lk,D]; D in {64, 128}; bf16 or fp32;
-    key_mask: optional bool [B, Lk], True = attend. -> [B,H,Lq,D].
+    key_mask: optional bool [B, Lk], True = attend. -> [B,H,Lq,D] (a view of
+    [B,Lq,H,D] memory on the card).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
@@ -106,21 +158,31 @@ def flash_sdpa_key_mask(q, k, v, key_mask=None):
         raise ValueError("flash_sdpa_key_mask: the kernel takes bf16 or fp32, one type for q, k, v")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_sdpa_key_mask: the kernel takes head dim 64 or 128, got {D}")
-    if Lq == 0 or Lk == 0 or B * H == 0 or B * H > 65535:
+    if Lq == 0 or Lk == 0 or B * H == 0 or B * H > GRID_Y_LIMIT:
         raise ValueError(f"flash_sdpa_key_mask: unsupported sizes B*H={B * H}, Lq={Lq}, Lk={Lk}")
-    out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, key_mask)
+
+
+def _launch(q, k, v, key_mask):
+    """One launch on the card."""
+    dev = q.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(q, k, v, key_mask)
+    B, H, Lq, D = q.shape
+    args = _call_args(q.shape, k.shape, q.stride(), k.stride(), v.stride(), q.element_size(),
+                      _DTYPES[q.dtype])
+    # [B, Lq, H, D] memory: merging the heads afterwards is a free reshape
+    out = torch.empty_strided((B, H, Lq, D), (Lq * H * D, D, H * D, 1), dtype=q.dtype, device=q.device)
     if key_mask is not None:
         key_mask = key_mask.contiguous()
-    strides = (*_strides("q", q), *_strides("k", k), *_strides("v", v),
-               *_strides("out", out), Lk)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError("flash_sdpa_key_mask: q, k and v must start on 16-byte boundaries")
     global launch_count
-    with torch.cuda.device(q.device):
-        rc = _lib().stk_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            B, H, Lq, Lk, D, _DTYPES[q.dtype], *strides,
-            torch.cuda.current_stream().cuda_stream)
+    rc = _lib().stk_flash_attention(
+        *ptrs, out.data_ptr(), None if key_mask is None else key_mask.data_ptr(), *args,
+        torch._C._cuda_getCurrentRawStream(dev))
     launch_count += 1
-    if rc != 0:
-        raise RuntimeError(f"flash_sdpa_key_mask: kernel launch failed (cudaError {rc})")
+    _check_rc(rc)
     return out
