@@ -35,6 +35,7 @@ import torch
 # published peaks of one H100 SXM (dense): the roofline the bounds are stated against
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -137,9 +138,16 @@ def attn_exp_bound(B, H, Lq, Lk):
 
 
 def vq_bound(N, C, D=16):
-    t_ops = 2.0 * N * C * D / PEAK_FP32_FLOPS
+    """The least time for the screen-and-rescore kernel: the larger of its
+    TF32 products (2*N*C*D at the TF32 peak), one CUDA-core compare per
+    score (N*C over 132 SMs x 128 lanes a clock) and its bytes. Also
+    returns the fp32 CUDA-core figure of scoring every code exactly."""
+    t_tf32 = 2.0 * N * C * D / PEAK_TF32_FLOPS
+    t_cmp = N * C / (132 * 128 * sm_clock_hz())
     t_bytes = (N * D * 4 + C * D * 4 + N * 4) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    fp32_ms = max(2.0 * N * C * D / PEAK_FP32_FLOPS, t_bytes) * 1e3
+    t = max(t_tf32, t_cmp, t_bytes)
+    return t * 1e3, "operations" if t > t_bytes else "bytes", fp32_ms
 
 
 def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="dense"):
@@ -216,18 +224,46 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
     return rec
 
 
-def vq_case(vk, name, N, C, gen, timed, kind="random"):
+def vq_inputs(N, C, gen, kind):
+    """z [N, 16] unit rows and a codebook [C, 16] of the case's kind; the
+    rows whose ids must equal the float64 argmax exactly (near ties)."""
     dev = "cuda"
     z = torch.randn((N, 16), generator=gen, device=dev)
     z = z / z.norm(dim=-1, keepdim=True)
     e = torch.randn((C, 16), generator=gen, device=dev)
     e = e / e.norm(dim=-1, keepdim=True)
+    tie_rows = None
     if kind == "identical":
         e = e[:1].expand(C, 16).contiguous()          # every code equal -> id 0
     elif kind == "duplicates":
         # every code appears twice more, later in the book: the lowest index must win
         third = C // 3
         e = torch.cat([e[:third], e[:third], e[:third]]).contiguous()
+    elif kind == "norms":
+        # norms from 0.1 to 10, log-uniform: the codebook is never normalised
+        e = e * torch.exp(torch.empty((C, 1), device=dev).uniform_(math.log(0.1), math.log(10.0),
+                                                                   generator=gen))
+    elif kind == "near_tie":
+        # per row of a set with distinct best codes, a twin of the best code
+        # (taken from the codes that are nobody's best) scores 1e-6..1e-3
+        # below it: beyond VQ_MARGIN, inside the TF32 screen's window
+        best = (z.double() @ e.double().t()).argmax(dim=1)
+        first = torch.full((C,), N, dtype=torch.long, device=dev)
+        first.scatter_reduce_(0, best, torch.arange(N, device=dev), reduce="amin")
+        rows = first[first < N][: N // 2]
+        free = torch.ones(C, dtype=torch.bool, device=dev)
+        free[best] = False
+        twins = free.nonzero()[:, 0]
+        twins = twins[torch.randperm(twins.numel(), generator=gen, device=dev)][: rows.numel()]
+        rows = rows[: twins.numel()]
+        delta = 10.0 ** torch.empty((rows.numel(), 1), device=dev).uniform_(-6, -3, generator=gen)
+        e[twins] = e[best[rows]] - delta * z[rows]
+        tie_rows = rows
+    return z, e.contiguous(), tie_rows
+
+
+def vq_case(vk, name, N, C, gen, timed, kind="random", time_once=False, count=False):
+    z, e, tie_rows = vq_inputs(N, C, gen, kind)
     before = vk.launch_count
     ids = vk.vq_argmax(z, e)
     torch.cuda.synchronize()
@@ -239,6 +275,7 @@ def vq_case(vk, name, N, C, gen, timed, kind="random"):
     chosen = scores.gather(1, ids.long()[:, None])[:, 0]
     top2 = torch.topk(scores, 2, dim=-1).values
     err = (top2[:, 0] - chosen).abs().max().item()
+    rec = {"case": name, "shape": [N, C, 16], "kind": kind, "max_abs_err": err}
     if kind == "identical":
         if int(ids.abs().max()) != 0:
             raise RuntimeError(f"{name}: identical codes must give id 0")
@@ -251,20 +288,47 @@ def vq_case(vk, name, N, C, gen, timed, kind="random"):
             raise RuntimeError(f"{name}: chosen score {err} below the best")
     else:
         plain = vk.vq_argmax_plain(z, e)
+        # the fp32 sums' error grows with the norms: the margin scales with the largest
+        margin_tol = VQ_MARGIN * max(1.0, float(e.norm(dim=-1).max()))
         margin = (top2[:, 0] - top2[:, 1])
-        bad = (ids != plain) & (margin >= VQ_MARGIN)
+        bad = (ids != plain) & (margin >= margin_tol)
         if int(bad.sum()) != 0:
             raise RuntimeError(
-                f"{name}: {int(bad.sum())} ids differ from the plain version outside margin {VQ_MARGIN}")
-    rec = {"case": name, "shape": [N, C, 16], "kind": kind, "max_abs_err": err}
+                f"{name}: {int(bad.sum())} ids differ from the plain version outside margin {margin_tol}")
+        if tie_rows is not None:
+            want = scores.argmax(dim=1)
+            tie_margin = margin[tie_rows]
+            wrong = int((ids[tie_rows].long() != want[tie_rows]).sum())
+            rec.update(near_tie_rows=int(tie_rows.numel()),
+                       near_tie_margin_min=float(tie_margin.min()),
+                       near_tie_margin_max=float(tie_margin.max()),
+                       near_tie_ids_wrong=wrong)
+            if wrong:
+                raise RuntimeError(f"{name}: {wrong} near-tie ids differ from the float64 argmax")
+            if float(tie_margin.min()) < VQ_MARGIN * 0.5 or float(tie_margin.max()) > 2e-3:
+                raise RuntimeError(f"{name}: the near ties are not in 1e-6..1e-3")
+    if count:
+        ids_c, rescored = vk.vq_argmax_rescored(z, e)
+        if not torch.equal(ids_c, ids):
+            raise RuntimeError(f"{name}: the counting launch gave other ids")
+        rec.update(rescored_mean=float(rescored.float().mean()), rescored_max=int(rescored.max()))
+    if time_once:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vk.vq_argmax(z, e)
+        end.record()
+        torch.cuda.synchronize()
+        rec["once_ms"] = start.elapsed_time(end)
     if timed:
-        bound, by = vq_bound(N, C)
+        bound, by, fp32_bound = vq_bound(N, C)
         rec.update(
             ms=time_ms(lambda: vk.vq_argmax(z, e)),
             host_paced_ms=time_ms(lambda: vk.vq_argmax(z, e), hold=False),
             plain_ms=time_ms(lambda: vk.vq_argmax_plain(z, e)),
             library_ms=time_ms(lambda: torch.argmax(z @ e.t(), dim=-1)),
-            bound_ms=bound, bound_by=by)
+            bound_ms=bound, bound_by=by, fp32_bound_ms=fp32_bound)
+        rec["share"] = bound / rec["ms"]
     log(f"  vq_argmax {name}: {json.dumps(rec)}")
     return rec
 
@@ -421,11 +485,14 @@ def conv_bound(B, H, W, C, dtype):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def conv_case(c3, name, B, H, W, C, dtype, gen, timed):
+def conv_case(c3, name, B, H, W, C, dtype, gen, timed, batch_slice=False):
+    """batch_slice: x is x[1:] of a batch one larger, so it starts
+    H * W * 3 values into its memory (2 bytes into a 4-byte word in bf16 at
+    odd H * W)."""
     import torch.nn.functional as F
 
     dev = "cuda"
-    x = torch.randn((B, H, W, 3), generator=gen, device=dev).to(dtype)
+    x = torch.randn((B + batch_slice, H, W, 3), generator=gen, device=dev).to(dtype)[int(batch_slice):]
     w = torch.randn((C, 3, 3, 3), generator=gen, device=dev) * 0.2
     b = torch.randn((C,), generator=gen, device=dev) * 0.1
     before = c3.launch_count
@@ -445,7 +512,8 @@ def conv_case(c3, name, B, H, W, C, dtype, gen, timed):
         raise RuntimeError(f"{name}: kernel differs from the plain version by {err} "
                            f"(rtol {rtol}, atol {atol})")
     rec = {"case": name, "shape": [B, H, W, 3, C], "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "rtol": rtol, "atol": atol}
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "x_offset_bytes": x.data_ptr() % 16,
+           "smem": c3._lib().stk_conv3ch_smem(W, C, 1 if dtype == torch.bfloat16 else 0)}
     if timed:
         bound, by = conv_bound(B, H, W, C, dtype)
         xc = x.permute(0, 3, 1, 2)            # NCHW view of NHWC memory: channels_last
@@ -462,6 +530,7 @@ def conv_case(c3, name, B, H, W, C, dtype, gen, timed):
             host_paced_ms=time_ms(lambda: c3.conv3ch_3x3(x, w, b), hold=False),
             plain_ms=time_ms(lambda: c3.conv3ch_3x3_plain(x, w, b), reps=3, rounds=3),
             library_ms=library_ms, bound_ms=bound, bound_by=by)
+        rec["share"] = bound / rec["ms"]
     log(f"  conv3ch_3x3 {name}: {json.dumps(rec)}")
     return rec
 
@@ -510,13 +579,18 @@ def kernel_phase():
     attn_recs = [attn_case(fa, *c[:8], gen, c[8]) for c in attn]
     attn_recs += [attn_case(fa, *c[:8], gen, c[8], layout="qkv") for c in attn_qkv]
     vq = [
-        ("flagship_b8", 4096, 32768, True, "random"),
-        ("flagship_b32", 16384, 32768, True, "random"),
-        ("ragged", 1000, 5001, False, "random"),
-        ("identical_codes", 300, 4096, False, "identical"),
-        ("duplicate_codes", 777, 3 * 1024, False, "duplicates"),
+        # (name, N, C, timed, kind, time once, count re-scores)
+        ("flagship_b8", 4096, 32768, True, "random", False, True),
+        ("flagship_b32", 16384, 32768, True, "random", False, True),
+        ("ragged", 1000, 5001, False, "random", False, False),
+        ("norms_0.1_to_10", 4096, 32768, False, "norms", False, True),
+        ("near_tie", 4096, 32768, False, "near_tie", False, True),
+        ("identical_codes", 300, 4096, False, "identical", False, False),
+        # every code is a candidate: the slowest case, timed once
+        ("identical_codes_flagship", 4096, 32768, False, "identical", True, True),
+        ("duplicate_codes", 777, 3 * 1024, False, "duplicates", False, False),
     ]
-    vq_recs = [vq_case(vk, n, N, C, gen, timed, kind) for n, N, C, timed, kind in vq]
+    vq_recs = [vq_case(vk, *c[:3], gen, *c[3:]) for c in vq]
     q8_cases = [
         # (name, M, K, N, x type, bias type, timed, kind, forced (bn, splits)):
         # the int8 decode's ten products first (batch 2: x stream M = 512,
@@ -558,10 +632,34 @@ def kernel_phase():
         # the VAE encoder's conv_in at batch 8 (not wired: no path runs it)
         ("vae_conv_in_bf16", 8, 256, 256, 128, bf, True),
         ("vae_conv_in_fp32", 8, 256, 256, 128, f32, True),
+        ("vae_conv_in_b1_bf16", 1, 256, 256, 128, bf, True),
+        ("vae_conv_in_b1_fp32", 1, 256, 256, 128, f32, True),
+        ("vae_conv_in_b32_bf16", 32, 256, 256, 128, bf, True),
+        ("vae_conv_in_b32_fp32", 32, 256, 256, 128, f32, True),
         ("ragged_bf16", 2, 37, 29, 20, bf, False),
         ("ragged_fp32", 2, 37, 29, 20, f32, False),
+        # ragged widths (odd: bf16 rows start on odd 2-byte offsets), C = 20
+        # and 256, a single row
+        ("w31_c20_bf16", 3, 17, 31, 20, bf, False),
+        ("w31_c20_fp32", 3, 17, 31, 20, f32, False),
+        ("w257_c256_bf16", 2, 9, 257, 256, bf, False),
+        ("w257_c256_fp32", 2, 9, 257, 256, f32, False),
+        ("h1_bf16", 4, 1, 64, 128, bf, False),
+        ("h1_fp32", 4, 1, 64, 128, f32, False),
+        # channels past what one pass of the kernel holds: fp32 above 1024
+        # (threads take 4-channel groups in turn), bf16 whose warps' 16 x C
+        # output tiles do not fit (stored 64 channels at a time)
+        ("wide_c1500_fp32", 2, 5, 20, 1500, f32, False),
+        ("wide_c1000_bf16", 2, 5, 37, 1000, bf, False),
     ]
     conv_recs = [conv_case(c3, *c[:6], gen, c[6]) for c in conv_cases]
+    # x[1:] of a [2, 37, 29, 3] batch: it starts 6,438 bytes in (bf16), not
+    # on a 4-byte word
+    for dtype in (bf, f32):
+        conv_recs.append(conv_case(c3, f"batch_slice_{str(dtype)[6:]}", 1, 37, 29, 20, dtype,
+                                   gen, False, batch_slice=True))
+    if conv_recs[-2]["x_offset_bytes"] % 4 != 2:
+        raise RuntimeError("batch_slice_bfloat16 must start 2 bytes into a word")
     return attn_recs, vq_recs, q8_recs, conv_recs
 
 
@@ -980,7 +1078,8 @@ def main():
     src = "selftoktokenizer_tpu_torch/csrc/"
     kernels = [
         headline("vq_argmax", vq_recs, src + "vq_argmax.cu",
-                 "selftoktokenizer_tpu/ops/vq_kernels.py:86"),
+                 "selftoktokenizer_tpu/ops/vq_kernels.py:86", share=vq_recs[0]["share"],
+                 rescored_mean=vq_recs[0]["rescored_mean"], rescored_max=vq_recs[0]["rescored_max"]),
         headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
                  "selftoktokenizer_tpu/ops/flash_attention.py:102", share=attn_recs[0]["share"]),
         headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
@@ -988,7 +1087,7 @@ def main():
                  quantize_ms=q8_recs[0]["quantize_ms"]),
         # no path runs it, in the JAX package either: held here, wired nowhere
         headline("conv3ch_3x3", conv_recs, src + "conv3ch.cu",
-                 "selftoktokenizer_tpu/ops/conv3ch.py:69", wired=False),
+                 "selftoktokenizer_tpu/ops/conv3ch.py:69", wired=False, share=conv_recs[0]["share"]),
     ]
     if args.only is not None:
         log(json.dumps({"kernels": kernels}))

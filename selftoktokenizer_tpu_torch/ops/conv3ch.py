@@ -11,10 +11,13 @@ says otherwise.
 
 Bound on an H100: the output stream (at [8,256,256,3] -> 128 channels,
 134 MB in bf16 against 3 MB of input and 3.6 GFLOP). The kernel
-(``csrc/conv3ch.cu``) stages each block's input band and the weights in
-shared memory, so no patch tensor is ever written, and stores 16-byte
-vectors along C; it sums on the CUDA cores. Unlike the TPU kernel it takes
-any H, W and C.
+(``csrc/conv3ch.cu``) is persistent over image rows: each block loads the
+weights once and double-buffers the input bands with cp.async, so no patch
+tensor is ever written. bf16 sums on the tensor cores (``mma.sync``
+m16n8k16, the 27 taps padded to 32), fp32 on the CUDA cores with each
+thread's weights in registers; the output leaves as 16-byte vectors in
+contiguous runs. Unlike the TPU kernel it takes any H, W and C whose
+shared memory fits a block, and x need only be aligned to its type.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def _lib():
         lib.stk_conv3ch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.stk_conv3ch.restype = ctypes.c_int
-        lib.stk_conv3ch_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.stk_conv3ch_smem.argtypes = [ctypes.c_int] * 3
         lib.stk_conv3ch_smem.restype = ctypes.c_longlong
         lib._stk_typed = True
     return lib
@@ -81,10 +84,10 @@ def conv3ch_3x3(x, w, b):
         raise ValueError("conv3ch_3x3: the kernel takes contiguous inputs")
     B, H, W, _ = x.shape
     C = w.shape[0]
-    if B > 65535:
-        raise ValueError(f"conv3ch_3x3: batch {B} exceeds the kernel's grid")
+    if B * H >= 2 ** 31:
+        raise ValueError(f"conv3ch_3x3: {B} x {H} image rows exceed the kernel's row index")
     lib = _lib()
-    if lib.stk_conv3ch_smem(W, C) > SMEM_LIMIT:
+    if lib.stk_conv3ch_smem(W, C, _DTYPES[x.dtype]) > SMEM_LIMIT:
         raise ValueError(f"conv3ch_3x3: width {W} with {C} channels needs more shared "
                          f"memory than a block has")
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)

@@ -60,3 +60,81 @@ def test_conv3ch_cpu_takes_the_plain_version_without_counting():
     assert c3.launch_count == before
     with pytest.raises(ValueError):
         c3.conv3ch_3x3(torch.from_numpy(x)[..., :2], _oihw(w), torch.from_numpy(b))
+
+
+def _c_sizes():
+    """csrc/conv3ch.cu's one-line size functions (row_stride .. smem_bytes)
+    and constants, translated from the source text: C's integer division,
+    casts, logic and one-level conditionals written for Python."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "selftoktokenizer_tpu_torch", "csrc", "conv3ch.cu")).read()
+    env = {name: int(val) for name, val in
+           re.findall(r"constexpr (?:int|size_t) (\w+) = (\d+);", src)}
+    env["WARPS"] = env["THREADS"] // 32
+    fns = re.findall(r"__forceinline__ (?:int|size_t) (\w+)\(([^)]*)\) \{ return ([^;]+); \}", src)
+    for name, args, body in fns:
+        params = ", ".join(a.split()[-1] for a in args.split(","))
+        expr = body.replace("(size_t)", "").replace("/", "//")
+        expr = expr.replace("||", " or ").replace("&&", " and ")
+        cond = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+        if cond:
+            expr = f"({cond[2]}) if ({cond[1]}) else ({cond[3]})"
+        env[name] = eval(f"lambda {params}: {expr}", env)
+    assert {"row_stride", "smem_bf16", "stage_channels", "f32_chunks", "smem_f32",
+            "smem_bytes"} <= set(env)
+    return env
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3ch_smem_of_the_card_cases_fits_a_block(dtype):
+    k = _c_sizes()
+    assert k["SMEM_LIMIT"] == c3.SMEM_LIMIT
+    bf16 = dtype == torch.bfloat16
+    # the VAE's conv_in, the widest width, and the wide-channel cases of the
+    # card check fit a block
+    for W, C in ((256, 128), (257, 256), (20, 1500), (37, 1000)):
+        assert k["smem_bytes"](W, C, bf16) <= c3.SMEM_LIMIT, (W, C)
+    if bf16:
+        # the VAE stores whole 16 x C tiles, C = 1000 64 channels at a time
+        assert k["stage_channels"](256, 128) == 128 and k["stage_channels"](37, 1000) == 64
+    else:
+        # one turn over the channel groups up to 1024 channels, two at 1500
+        assert k["f32_chunks"](1024) == 1 and k["f32_chunks"](1500) == 2
+        # with one turn the bands reuse the weight table's space
+        assert k["smem_f32"](256, 128) == max(27 * 128 * 4, 24 * k["row_stride"](256))
+
+
+def _earlier_kernel_smem(W, C):
+    # the kernel this one replaced: a band of 6 rows of W + 2 fp32 pixels
+    # (rounded up to 4 floats), then 27 weights and the bias for C rounded up
+    # to 8, all fp32, in either type of x
+    return 4 * ((6 * (W + 2) * 3 + 3) // 4 * 4 + 28 * (-(-C // 8) * 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3ch_takes_every_shape_the_earlier_kernel_took(dtype):
+    k = _c_sizes()
+    bf16 = dtype == torch.bfloat16
+    lim = c3.SMEM_LIMIT
+    fits = lambda W, C: k["smem_bytes"](W, C, bf16) <= lim
+    # the earlier kernel's widest W at one channel, and its most channels at
+    # each width: the edges of what it took
+    w_max = max(W for W in range(1, 4000) if _earlier_kernel_smem(W, 1) <= lim)
+    assert fits(w_max, 1)
+    for W in (1, 2, 3, 29, 31, 256, 257, 1000, 1600, 2000, 3000, w_max):
+        c_max = max(C for C in range(1, 2200, 1) if _earlier_kernel_smem(W, C) <= lim)
+        for C in (1, 3, 8, 20, 128, 1024, 1025, c_max):
+            if C <= c_max:
+                assert fits(W, C), (W, C)
+
+
+@pytest.mark.parametrize("B,H,W,C", [(1, 1, 31, 20), (2, 5, 257, 256), (3, 2, 1, 8)])
+def test_conv3ch_plain_ragged_widths_match_xla_conv(B, H, W, C):
+    # the card check's ragged widths, a single row and C = 256, held here
+    # against the JAX package's fp32 conv through the plain version
+    x, w, b = _inputs(B + W, B, H, W, C)
+    want = j_conv2d({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x))
+    got = c3.conv3ch_3x3(torch.from_numpy(x), _oihw(w), torch.from_numpy(b))
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-5, atol=1e-5)
