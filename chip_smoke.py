@@ -1,9 +1,13 @@
 """Chip smoke test of the PyTorch / CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch version on the GPU, and drives, at full
-width on seeded random weights, the flagship encode + 50-step bf16 decode,
-the int8 decode (``decode_dtype='int8'``, through ``q8_matmul``) and the
-one-step renderer in bf16 and int8. Each path runs with every launch count
-set to 0 just before it and read just after.
+width on seeded random weights, the flagship encode (at 'highest', 'high'
+and 'default') + 50-step bf16 decode,
+the int8 decode (``decode_dtype='int8'``, through ``q8_matmul``), the
+one-step renderer in bf16 and int8, and training: three tokenizer train
+steps and two renderer train steps at batch 4, fp32 with TF32 off, the
+first of each held against the same step with the plain versions forced.
+Each path runs with every launch count set to 0 just before it and read
+just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -14,9 +18,11 @@ It exits non-zero when no GPU is available or when any phase fails. The
 last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
-``--only kernels`` stops after the kernel phase; ``--ptxas`` prints the
+``--only kernels`` stops after the kernel phase, ``--only train`` runs the
+train phase alone (no kernel line, no final line); ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
-torch.profiler pass over one warm bf16 decode and one warm int8 decode;
+torch.profiler pass over one warm bf16 decode, one warm int8 decode and one
+extra tokenizer and renderer train step;
 ``--q8-sweep`` times every ``q8_matmul`` plan at the main path's shapes.
 """
 
@@ -51,6 +57,9 @@ Q8_FP32_BIAS_RTOL = 2.0 ** -23
 CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-6)}
 VQ_MARGIN = 1e-6          # ids may differ from the plain version only below this top-2 margin
 DEFAULT_TIER_MARGIN = 0.05  # bf16 trunk: kernel and plain ids may differ only below this margin
+# 'high' (TF32 trunk): the plain argmax scores in TF32 too (errors up to about
+# 2e-3 on unit vectors), the kernel exactly; margins read at 'highest'
+HIGH_TIER_MARGIN = 1e-2
 LATENT_TOL = 5e-2         # bf16 decode, kernels against forced plain versions
 # int8 renderer, kernels against forced plain versions, relative to the latent
 # scale: the attention kernel and plain attention round bf16 at other places,
@@ -60,6 +69,15 @@ LATENT_TOL = 5e-2         # bf16 decode, kernels against forced plain versions
 # renderer to against JAX: all but one value in a thousand within 3e-2 of the
 # scale, none beyond 6e-2.
 RENDER_INT8_TOL = (3e-2, 6e-2)
+# the attention backward (plain PyTorch in an autograd Function) against
+# autograd through the plain forward, relative to each grad's largest value
+ATTN_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# a train step on the kernels against the same step on the plain versions
+# (fp32, TF32 off): the loss, and each gradient leaf (its largest error
+# against its largest value, and its cosine with the plain gradient)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_GRAD_COS = 0.9999
 
 
 def log(msg):
@@ -128,6 +146,16 @@ def attn_bound(B, H, Lq, Lk, D, dtype, masked):
     nbytes = (2 * Lq + 2 * Lk) * D * B * H * item + (B * Lk if masked else 0)
     t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attn_backward_bound(B, H, Lq, Lk, D, dtype):
+    """The backward's five products (the scores again, dV, dP, dQ, dK) in
+    fp32 on the CUDA cores, against reading q, k, v, dO and writing dq, dk,
+    dv once."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    t_ops = 10.0 * B * H * Lq * Lk * D / PEAK_FP32_FLOPS
+    t_bytes = (4 * Lq + 3 * Lk) * D * B * H * item / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -221,6 +249,70 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
             bound_ms=bound, bound_by=by, exp_bound_ms=attn_exp_bound(B, H, Lq, Lk))
         rec["share"] = bound / rec["ms"]
     log(f"  attention {name}: {json.dumps(rec)}")
+    return rec
+
+
+def attn_grad_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, layout, timed, gen):
+    """The wrapper's gradients (kernel forward, the fp32 recompute backward)
+    against autograd through the plain forward, on the same inputs."""
+    dev = "cuda"
+    if layout == "qkv":
+        leaf = torch.randn((B, Lq, 3, H, D), generator=gen, device=dev).to(dtype).requires_grad_()
+        q, k, v = (leaf[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    else:
+        q, k, v = (torch.randn((B, H, L, D), generator=gen, device=dev).to(dtype).requires_grad_()
+                   for L in (Lq, Lk, Lk))
+    mask = None
+    if mask_kind == "prefix":
+        n_ctx = Lk - 256
+        active = torch.randint(1, n_ctx + 1, (B,), generator=gen, device=dev)
+        pos = torch.arange(Lk, device=dev)[None, :]
+        mask = (pos < active[:, None]) | (pos >= n_ctx)
+    elif mask_kind == "ones":
+        mask = torch.ones((B, Lk), dtype=torch.bool, device=dev)
+    elif mask_kind in ("random", "full_row"):
+        mask = torch.rand((B, Lk), generator=gen, device=dev) > 0.5
+        mask[:, 0] = True
+        if mask_kind == "full_row":
+            mask[0, :] = False
+    do = torch.randn((B, H, Lq, D), generator=gen, device=dev).to(dtype)
+    before = fa.launch_count
+    out = fa.flash_sdpa_key_mask(q, k, v, mask)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    if fa.launch_count != before + 1:
+        raise RuntimeError(f"{name}: the forward did not launch the kernel once")
+    ref = torch.autograd.grad(fa.flash_sdpa_key_mask_plain(q, k, v, mask), (q, k, v), do)
+    rec = {"case": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
+           "mask": mask_kind, "layout": layout}
+    for n, g, r in zip("qkv", grads, ref):
+        if g.dtype != dtype or not torch.isfinite(g.float()).all():
+            raise RuntimeError(f"{name}: d{n} is not finite {dtype}")
+        err = (g.float() - r.float()).abs().max().item() / max(r.float().abs().max().item(), 1e-30)
+        rec[f"d{n}_rel_err"] = err
+        if err > ATTN_GRAD_TOL[dtype]:
+            raise RuntimeError(f"{name}: d{n} differs from the plain autograd by {err} of its scale")
+    if timed:
+        import torch.nn.functional as F
+
+        q0, k0, v0 = q.detach(), k.detach(), v.detach()
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q0, k0, v0))
+        out_p = fa.flash_sdpa_key_mask_plain(qr, kr, vr, mask)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q0, k0, v0))
+        out_l = F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=None if mask is None else mask[:, None, None, :])
+        bound, by = attn_backward_bound(B, H, Lq, Lk, D, dtype)
+        rec.update(
+            backward_ms=time_ms(lambda: fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, do),
+                                reps=3, rounds=3),
+            plain_autograd_backward_ms=time_ms(
+                lambda: torch.autograd.grad(out_p, (qr, kr, vr), do, retain_graph=True),
+                reps=3, rounds=3),
+            library_backward_ms=time_ms(
+                lambda: torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True),
+                reps=3, rounds=3),
+            backward_bound_ms=bound, backward_bound_by=by)
+    log(f"  attention grad {name}: {json.dumps(rec)}")
     return rec
 
 
@@ -553,6 +645,10 @@ def kernel_phase():
         ("renderer_context_bf16", 8, 24, 512, 512, 64, bf, "ones", True),
         ("renderer_x_bf16", 8, 24, 256, 768, 64, bf, "ones", True),
         ("decode_joint_fp32_masked", 2, 24, 768, 768, 64, f32, "prefix", True),
+        # training, fp32 at batch 4: the tokenizer's joint attention, the
+        # renderer's x rows (its context rows are qkv views, below)
+        ("train_joint_fp32_masked", 4, 24, 768, 768, 64, f32, "prefix", True),
+        ("train_renderer_x_fp32", 4, 24, 256, 768, 64, f32, "ones", True),
         # the decode's other context buckets: joint lengths 384, 512 and 640
         ("decode_joint_384_bf16_masked", 2, 24, 384, 384, 64, bf, "prefix", True),
         ("decode_joint_512_bf16_masked", 2, 24, 512, 512, 64, bf, "prefix", True),
@@ -572,12 +668,23 @@ def kernel_phase():
     attn_qkv = [
         ("qkv_views_renderer_context_bf16", 8, 24, 512, 512, 64, bf, "ones", True),
         ("qkv_views_uncond_bf16", 2, 24, 256, 256, 64, bf, None, True),
+        ("qkv_views_train_renderer_context_fp32", 4, 24, 512, 512, 64, f32, "ones", True),
         ("qkv_views_ragged_bf16_masked", 2, 3, 200, 200, 64, bf, "random", False),
     ]
     if 77 % fa.BM == 0 or 129 % fa.BN == 0:
         raise RuntimeError("ragged_tiles_bf16 must be ragged in both tiles")
     attn_recs = [attn_case(fa, *c[:8], gen, c[8]) for c in attn]
     attn_recs += [attn_case(fa, *c[:8], gen, c[8], layout="qkv") for c in attn_qkv]
+    attn_grad = [
+        # the training path's calls, then the edges
+        ("grad_train_joint_fp32_masked", 4, 24, 768, 768, 64, f32, "prefix", "dense", True),
+        ("grad_train_renderer_context_fp32", 4, 24, 512, 512, 64, f32, "ones", "qkv", True),
+        ("grad_train_renderer_x_fp32", 4, 24, 256, 768, 64, f32, "ones", "dense", True),
+        ("grad_ragged_bf16", 2, 3, 200, 333, 64, bf, "random", "dense", False),
+        ("grad_fully_masked_row_fp32", 2, 4, 128, 192, 64, f32, "full_row", "dense", False),
+        ("grad_head_dim_128_fp32", 1, 4, 130, 257, 128, f32, "random", "dense", False),
+    ]
+    attn_grad_recs = [attn_grad_case(fa, *c, gen) for c in attn_grad]
     vq = [
         # (name, N, C, timed, kind, time once, count re-scores)
         ("flagship_b8", 4096, 32768, True, "random", False, True),
@@ -660,7 +767,7 @@ def kernel_phase():
                                    gen, False, batch_slice=True))
     if conv_recs[-2]["x_offset_bytes"] % 4 != 2:
         raise RuntimeError("batch_slice_bfloat16 must start 2 bytes into a word")
-    return attn_recs, vq_recs, q8_recs, conv_recs
+    return attn_recs, attn_grad_recs, vq_recs, q8_recs, conv_recs
 
 
 # ------------------------------------------------------------- main path ---
@@ -808,6 +915,8 @@ def bf16_path(card, do_profile):
     reset_counts()
     ids_hi, t_hi = timed(lambda: pipe.encoding(images))
     c1 = counts()
+    ids_high, t_high = timed(lambda: pipe.encoding(images, precision="high"))
+    c1h = counts()
     ids_def, t_def = timed(lambda: pipe.encoding(images, precision="default"))
     c2 = counts()
     (img2, lat2), t_dec = timed(lambda: pipe.decoding(
@@ -817,12 +926,13 @@ def bf16_path(card, do_profile):
         ids_hi[:1], noise=noise1, cfg_scale=2.0, return_latents=True))
     c4 = counts()
 
-    expect = [(1, 0, 0, 0), (2, enc_cfg.depth, 0, 0),
-              (2, enc_cfg.depth + depth * steps, 0, 0),
-              (2, enc_cfg.depth + 3 * depth * steps, 0, 0)]
-    if [c1, c2, c3_, c4] != expect:
-        raise RuntimeError(f"launch counts {[c1, c2, c3_, c4]} differ from the path's {expect}")
+    expect = [(1, 0, 0, 0), (2, 0, 0, 0), (3, enc_cfg.depth, 0, 0),
+              (3, enc_cfg.depth + depth * steps, 0, 0),
+              (3, enc_cfg.depth + 3 * depth * steps, 0, 0)]
+    if [c1, c1h, c2, c3_, c4] != expect:
+        raise RuntimeError(f"launch counts {[c1, c1h, c2, c3_, c4]} differ from the path's {expect}")
     check_ids(ids_hi, B)
+    check_ids(ids_high, B)
     check_ids(ids_def, B)
     check_images(img2, 2)
     check_images(img1, 1)
@@ -834,6 +944,7 @@ def bf16_path(card, do_profile):
     # ---- the same calls with the plain versions forced
     before = counts()
     ids_hi_p = pipe.encoding(images, kernels="plain")
+    ids_high_p = pipe.encoding(images, precision="high", kernels="plain")
     ids_def_p = pipe.encoding(images, precision="default", kernels="plain")
     _, lat2_p = pipe.decoding(ids_hi[:2], noise=noise2, cfg_scale=1.0,
                               kernels="plain", return_latents=True)
@@ -846,6 +957,9 @@ def bf16_path(card, do_profile):
     diff_hi = ids_hi != ids_hi_p
     if int((diff_hi & (margins >= VQ_MARGIN)).sum()) != 0:
         raise RuntimeError("'highest' encode: kernel ids differ from plain ids outside the margin")
+    diff_high = ids_high != ids_high_p
+    if int((diff_high & (margins >= HIGH_TIER_MARGIN)).sum()) != 0:
+        raise RuntimeError("'high' encode: kernel ids differ from plain ids outside the margin")
     diff_def = ids_def != ids_def_p
     if int((diff_def & (margins >= DEFAULT_TIER_MARGIN)).sum()) != 0:
         raise RuntimeError("'default' encode: kernel ids differ from plain ids outside the margin")
@@ -855,6 +969,8 @@ def bf16_path(card, do_profile):
     e2 = (lat2 - lat2_p).abs().max().item()
     e1 = (lat1 - lat1_p).abs().max().item()
     log(f"  kernels vs forced plain: 'highest' ids differing {int(diff_hi.sum())}/{diff_hi.numel()}, "
+        f"'high' ids differing {int(diff_high.sum())} (agreeing with 'highest' "
+        f"{1.0 - (ids_high != ids_hi).float().mean().item():.4f}), "
         f"'default' ids agreeing {agree_def:.4f} "
         f"(share of tokens with margin >= {DEFAULT_TIER_MARGIN}: "
         f"{(margins >= DEFAULT_TIER_MARGIN).float().mean().item():.4f}), "
@@ -867,11 +983,14 @@ def bf16_path(card, do_profile):
 
     # the counted calls above were each path's first; time warm repeats too
     w_hi = warm(lambda: pipe.encoding(images), 3)
+    w_high = warm(lambda: pipe.encoding(images, precision="high"), 3)
     w_def = warm(lambda: pipe.encoding(images, precision="default"), 3)
     w_dec = warm(lambda: pipe.decoding(ids_hi[:2], noise=noise2, cfg_scale=1.0), 2)
     w_cfg = warm(lambda: pipe.decoding(ids_hi[:1], noise=noise1, cfg_scale=2.0), 1)
     log(f"encode 'highest': {B / w_hi:.2f} images/s (batch {B}, {w_hi * 1e3:.1f} ms warm, "
         f"{t_hi * 1e3:.1f} ms first call) on {card}")
+    log(f"encode 'high': {B / w_high:.2f} images/s (batch {B}, {w_high * 1e3:.1f} ms warm, "
+        f"{t_high * 1e3:.1f} ms first call) on {card}")
     log(f"encode 'default': {B / w_def:.2f} images/s (batch {B}, {w_def * 1e3:.1f} ms warm, "
         f"{t_def * 1e3:.1f} ms first call) on {card}")
     log(f"decode bf16, 50 steps, cfg 1.0: {w_dec / 2:.3f} s/image (batch 2, {w_dec:.3f} s warm, "
@@ -1008,11 +1127,338 @@ def renderer_path(card, ref):
     return total
 
 
+# ----------------------------------------------------------------- train ---
+
+TRAIN_BATCH = 4
+# warm steps beyond the path's own (3 tokenizer, 2 renderer steps), taken
+# only so that the warm step time is a median of several: host time spreads
+TIMING_REPEATS = 3
+
+
+def check_train_widths(tcfg, renderer):
+    enc, dec = tcfg.encoder, tcfg.decoder
+    widths = (enc.depth, enc.query_dim, enc.K, enc.codebook_size,
+              dec.depth, dec.hidden_size, dec.num_heads, dec.renderer)
+    if widths != (16, 512, 512, 32768, 24, 1536, 24, renderer):
+        raise RuntimeError(f"not the flagship widths: {widths}")
+
+
+def hold_grads(name, named, plain):
+    """Each gradient leaf of the kernel step against the plain step's (on
+    the host): the largest error within TRAIN_GRAD_TOL of the leaf's largest
+    value, the cosine at least TRAIN_GRAD_COS."""
+    worst = (0.0, 1.0, "")
+    for (n, p), r in zip(named, plain):
+        g = p.grad.detach().float()
+        r = r.to(g.device).float()
+        scale = r.abs().max().item()
+        err = (g - r).abs().max().item()
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        gn, rn = g.norm().item(), r.norm().item()
+        cos = 1.0 if gn == rn == 0 else (g * r).sum().item() / max(gn * rn, 1e-30)
+        if rel > TRAIN_GRAD_TOL or cos < TRAIN_GRAD_COS:
+            raise RuntimeError(f"{name}: grad of {n} differs from the plain step: "
+                               f"{rel} of its scale, cosine {cos}")
+        worst = (max(worst[0], rel), min(worst[1], cos), n if rel >= worst[0] else worst[2])
+    log(f"  {name} grads vs plain step: {len(plain)} leaves, largest error {worst[0]:.3g} of "
+        f"the leaf's scale ({worst[2]}), smallest cosine {worst[1]:.8f}")
+
+
+def hold_loss(name, got, want):
+    if not (math.isfinite(got) and abs(got - want) <= TRAIN_LOSS_RTOL * abs(want)):
+        raise RuntimeError(f"{name}: loss {got} differs from the plain step's {want}")
+
+
+def profile_train_step(fn, warm_s, label):
+    """Device time of one extra train step: busy share of the warm wall, the
+    attention kernel's forward and the attention backward (the fp32
+    recompute, under a profiler range)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from selftoktokenizer_tpu_torch.ops import flash_attention as fa
+
+    backward = fa.flash_sdpa_key_mask_backward
+
+    def ranged(*a):
+        with record_function("attention_backward"):
+            return backward(*a)
+
+    fa.flash_sdpa_key_mask_backward = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        fa.flash_sdpa_key_mask_backward = backward
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernel rows only: a range (the optimizer's, the backward's) also shows
+    # as a device row spanning its kernels
+    rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+    total = sum(r[0] for r in rows)
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    fwd = [r for r in rows if "flash_f32_kernel" in r[2] or "flash_bf16_kernel" in r[2]]
+    # the kernels launched inside the host-side ranges
+    bwd = [e for e in prof.events()
+           if e.name == "attention_backward" and e.device_type == DeviceType.CPU]
+    bwd_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                 for e in bwd)
+    rows.sort(reverse=True)
+    log(f"  profile of one warm {label} step: device busy {total / 1e6:.3f} s of {warm_s:.3f} s "
+        f"wall = {total / 1e6 / warm_s:.3f}; {sum(r[1] for r in rows)} device kernels; "
+        f"attention forward {sum(r[0] for r in fwd) / 1e3:.2f} ms over {sum(r[1] for r in fwd)} "
+        f"launches ({sum(r[0] for r in fwd) / total:.3f}), attention backward "
+        f"{bwd_us / 1e3:.2f} ms over {len(bwd)} calls ({bwd_us / total:.3f})")
+    for us, n, key in rows[:10]:
+        log(f"    {us / 1e3:9.2f} ms {us / total:6.3f} x{n:<6d} {key[:110]}")
+
+
+def tokenizer_train_path(card, do_profile):
+    """Three tokenizer train steps on the flagship at batch 4 (and
+    TIMING_REPEATS more); the first (k-means init and dead-code
+    reactivation on the 32768-code codebook) held against the same step
+    with the plain versions forced. Returns the
+    launch counts, the encoder's reference-named state dict and the VQ
+    state."""
+    import statistics
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import (
+        ImageTokenizer, init_weights_, pre_vq_outs, tokenizer_config_from_params)
+    from selftoktokenizer_tpu_torch.ops import routing
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    dev = "cuda"
+    tcfg = tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params))
+    check_train_widths(tcfg, renderer=False)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    with torch.device(dev):
+        tok = ImageTokenizer(tcfg)
+    init_weights_(tok, gen, zero_init_std=0.02)
+    tc = tr.TrainConfig()
+    state = tr.make_train_state(tok, tcfg, tc)
+    named = tr._trainable(tok)
+    log(f"  tokenizer {sum(p.numel() for _, p in named) / 1e9:.3f} B trainable parameters, "
+        f"use_checkpoint {tcfg.decoder.use_checkpoint}")
+    B, K, C = TRAIN_BATCH, tcfg.k, tcfg.encoder.codebook_size
+    batch = torch.randn((B, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
+    draws = {"t": torch.rand((B,), generator=gen, device=dev),
+             "noise": torch.randn(batch.shape, generator=gen, device=dev),
+             "drop_ids": torch.tensor([False, True, False, False], device=dev),
+             "kmeans_idx": vq_mod.kmeans_init_indices(B * K, C, gen),
+             "react_uniforms": torch.rand((C,), generator=gen, device=dev)}
+    fwd_per_step = tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1)
+
+    # step 1 with the plain versions forced, from the same state and draws
+    before = counts()
+    with routing.kernel_route("plain"):
+        loss_p, aux_p, params = tr.tokenizer_grads(state, tcfg, batch, **draws)
+        with torch.no_grad():
+            # the top-2 margins of the step's ids: its scores against the
+            # k-means codebook the step starts from
+            q = tok.encoder.quantizer
+            z = vq_mod.l2norm(vq_mod.project_in(q, pre_vq_outs(tok.encoder, tcfg, batch)[0]))
+            z = z.reshape(B * K, -1)
+            embed = vq_mod.kmeans_cosine(z, C, draws["kmeans_idx"],
+                                         tcfg.quantizer.get("kmeans_iters", 10))
+            top2 = torch.topk(z @ embed.t(), 2, dim=-1).values
+            margins = (top2[:, 0] - top2[:, 1]).reshape(B, K)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    plain = [p.grad.detach().to("cpu", copy=True) for p in params]
+    loss_p, ids_p = float(loss_p.detach()), aux_p["ids"]
+    del aux_p, z, embed, top2
+
+    # the counted steps: every count set to 0 just before each, read just after
+    total = (0, 0, 0, 0)
+    secs, peaks = [], []
+    for step in range(3 + TIMING_REPEATS):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        kw = draws if step == 0 else {"rng": gen}
+        (state, logs), t = timed(lambda: tr.train_step(state, tcfg, tc, batch, **kw))
+        c = counts()
+        if c != (0, fwd_per_step, 0, 0):
+            raise RuntimeError(f"tokenizer train step {step + 1}: launch counts {c}, "
+                               f"expected (0, {fwd_per_step}, 0, 0)")
+        total = tuple(a + b for a, b in zip(total, c))
+        secs.append(t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        loss, gnorm = float(logs["loss"]), float(logs["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"tokenizer train step {step + 1}: loss {loss}, grad norm {gnorm}")
+        log(f"  tokenizer train step {step + 1}: loss {loss:.6f}, grad norm {gnorm:.6g}, "
+            f"n_reactive {int(logs['vq_n_reactive'])}, {t:.3f} s, peak "
+            f"{peaks[-1] / 2**30:.2f} GiB, attention launches {c[1]}")
+        if step == 0:
+            hold_loss("tokenizer train step 1", loss, loss_p)
+            hold_grads("tokenizer train step 1", named, plain)
+            diff = logs["ids"] != ids_p
+            if int((diff & (margins >= VQ_MARGIN)).sum()) != 0:
+                raise RuntimeError("tokenizer train step 1: ids differ from the plain step's "
+                                   "outside the margin")
+            if int(logs["vq_n_reactive"]) <= 0:
+                raise RuntimeError("tokenizer train step 1 reactivated no code")
+            log(f"  tokenizer train step 1 vs plain: loss {loss:.8f} / {loss_p:.8f}, ids "
+                f"differing {int(diff.sum())}/{diff.numel()} (smallest margin "
+                f"{margins.min().item():.3g})")
+            del plain
+    if not torch.equal(tok.encoder.quantizer.embed, state.vq_state.embed):
+        raise RuntimeError("the EMA codebook was not written back")
+    warm_s = statistics.median(secs[1:])
+    log(f"train tokenizer, batch {B}, fp32 (TF32 off): {warm_s:.3f} s a warm step (median of "
+        f"steps 2-{len(secs)}: {', '.join(f'{t:.3f}' for t in secs[1:])}; step 1 {secs[0]:.3f} s), "
+        f"peak memory {max(peaks[1:]) / 2**30:.2f} GiB warm ({peaks[0] / 2**30:.2f} GiB in "
+        f"step 1) on {card}")
+    if do_profile:
+        profile_train_step(lambda: tr.train_step(state, tcfg, tc, batch, rng=gen), warm_s,
+                           "tokenizer train")
+    sd = {k: v.detach().to("cpu", copy=True) for k, v in tok.encoder.state_dict().items()}
+    for k, v in vq_mod.vq_state_to_state_dict(state.vq_state).items():
+        sd["quantizer." + k] = v.detach().to("cpu", copy=True)
+    vq_state = state.vq_state.to("cpu")
+    state.release()
+    del tok, named, params, state
+    release()
+    return total, sd, vq_state
+
+
+def renderer_train_path(card, do_profile, enc_sd, vq_state):
+    """The trained tokenizer's encoder written as a reference .pth (under
+    ``module.``), loaded back frozen through the pipeline's loader, and two
+    renderer train steps at batch 4 (and TIMING_REPEATS more), the first
+    held against the plain versions."""
+    import os
+    import statistics
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_RENDERER_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models.mmdit import MMDiT
+    from selftoktokenizer_tpu_torch.models.tokenizer import (
+        init_weights_, tokenizer_config_from_params)
+    from selftoktokenizer_tpu_torch.ops import routing
+    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    dev = "cuda"
+    cfg = load_config(FLAGSHIP_RENDERER_CONFIG)
+    tcfg = tokenizer_config_from_params(dict(cfg.tokenizer.params))
+    check_train_widths(tcfg, renderer=True)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "selftoktokenizer_tpu_torch", "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "chip_smoke_tokenizer.pth")
+    t0 = time.time()
+    torch.save({"module.encoder." + k: v for k, v in enc_sd.items()}, path)
+    size = os.path.getsize(path)
+    try:
+        pipe = SelftokPipeline(cfg, ckpt_path=path, encode_only=True, seed=0, zero_init_std=0.02,
+                               datasize=tcfg.image_size, device=dev)
+    finally:
+        os.remove(path)
+    log(f"  tokenizer .pth ({size / 2**20:.0f} MiB, the encoder and its VQ state under "
+        f"module.) written and loaded back in {time.time() - t0:.1f} s")
+    for k, v in pipe.encoder.state_dict().items():
+        want = vq_state.embed[None] if k == "quantizer._codebook.embed" else enc_sd[k]
+        if not torch.equal(v.cpu(), want):
+            raise RuntimeError(f"the loaded encoder's {k} differs from the trained one")
+    for f, v in vq_state.asdict().items():
+        if not torch.equal(getattr(pipe.vq_state, f), v):
+            raise RuntimeError(f"the loaded VQ state's {f} differs from the trained one")
+    encoder = pipe.encoder
+    if any(p.requires_grad for p in encoder.parameters()):
+        raise RuntimeError("the loaded encoder is not frozen")
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    with torch.device(dev):
+        model = MMDiT(tcfg.decoder)
+    init_weights_(model, gen, zero_init_std=0.02)
+    tc = tr.TrainConfig()
+    state = tr.make_renderer_train_state(model, tc)
+    named = tr._trainable(model)
+    log(f"  renderer {sum(p.numel() for _, p in named) / 1e9:.3f} B trainable parameters")
+    batch = torch.randn((TRAIN_BATCH, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
+    expect = (1, 2 * tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1), 0, 0)
+
+    before = counts()
+    with routing.kernel_route("plain"):
+        loss_p, _, params = tr.renderer_grads(state, tcfg, encoder, batch)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    plain = [p.grad.detach().to("cpu", copy=True) for p in params]
+    loss_p = float(loss_p.detach())
+
+    total = (0, 0, 0, 0)
+    secs, peaks = [], []
+    for step in range(2 + TIMING_REPEATS):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (state, logs), t = timed(lambda: tr.renderer_train_step(state, tcfg, tc, encoder, batch))
+        c = counts()
+        if c != expect:
+            raise RuntimeError(f"renderer train step {step + 1}: launch counts {c}, "
+                               f"expected {expect}")
+        total = tuple(a + b for a, b in zip(total, c))
+        secs.append(t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        loss, gnorm = float(logs["loss"]), float(logs["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"renderer train step {step + 1}: loss {loss}, grad norm {gnorm}")
+        log(f"  renderer train step {step + 1}: loss {loss:.6f}, grad norm {gnorm:.6g}, "
+            f"batch perplexity {float(logs['batch_perplexity']):.2f}, {t:.3f} s, peak "
+            f"{peaks[-1] / 2**30:.2f} GiB, attention launches {c[1]}")
+        if step == 0:
+            hold_loss("renderer train step 1", loss, loss_p)
+            hold_grads("renderer train step 1", named, plain)
+            del plain
+    warm_s = statistics.median(secs[1:])
+    log(f"train renderer, batch {TRAIN_BATCH}, fp32 (TF32 off): {warm_s:.3f} s a warm step "
+        f"(median of steps 2-{len(secs)}: {', '.join(f'{t:.3f}' for t in secs[1:])}; step 1 "
+        f"{secs[0]:.3f} s), peak memory {max(peaks[1:]) / 2**30:.2f} GiB warm "
+        f"({peaks[0] / 2**30:.2f} GiB in step 1) on {card}")
+    if do_profile:
+        profile_train_step(lambda: tr.renderer_train_step(state, tcfg, tc, encoder, batch),
+                           warm_s, "renderer train")
+    state.release()
+    del model, named, params, state, encoder, pipe
+    release()
+    return total
+
+
+def train_phase(card, do_profile):
+    """Training at the flagship widths, fp32 with TF32 off (the global flags
+    come back afterwards)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        tok_counts, enc_sd, vq_state = tokenizer_train_path(card, do_profile)
+        rend_counts = renderer_train_path(card, do_profile, enc_sd, vq_state)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return {"tokenizer train": tok_counts, "renderer train": rend_counts}
+
+
 def main_path_phase(card, do_profile=False):
     by_path = {}
     by_path["encode + bf16 decode"], ref = bf16_path(card, do_profile)
     by_path["int8 decode"] = int8_path(card, ref, do_profile)
     by_path["renderer bf16 + int8"] = renderer_path(card, ref)
+    del ref
+    release()
+    log("phase train:")
+    by_path.update(train_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
     by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in by_path.items()}
     log(f"  launches on the main paths: {json.dumps(by_path)}")
@@ -1023,8 +1469,8 @@ def main_path_phase(card, do_profile=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel phase")
+    ap.add_argument("--only", choices=["kernels", "train"], default=None,
+                    help="stop after the kernel phase, or run the train phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -1051,9 +1497,17 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
+    if args.only == "train":
+        log("phase train:")
+        by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in train_phase(card, args.profile).items()}
+        log(f"  launches on the train paths: {json.dumps(by_path)}")
+        log(card)
+        log(f"chip_smoke: stopped after phase train ({time.time() - t_start:.1f} s)")
+        return 0
+
     # phase 3: kernels against their plain versions
     log("phase kernels:")
-    attn_recs, vq_recs, q8_recs, conv_recs = kernel_phase()
+    attn_recs, attn_grad_recs, vq_recs, q8_recs, conv_recs = kernel_phase()
     if args.q8_sweep:
         from selftoktokenizer_tpu_torch.ops import q8_matmul as q8
         q8_sweep(q8)
@@ -1081,7 +1535,8 @@ def main():
                  "selftoktokenizer_tpu/ops/vq_kernels.py:86", share=vq_recs[0]["share"],
                  rescored_mean=vq_recs[0]["rescored_mean"], rescored_max=vq_recs[0]["rescored_max"]),
         headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
-                 "selftoktokenizer_tpu/ops/flash_attention.py:102", share=attn_recs[0]["share"]),
+                 "selftoktokenizer_tpu/ops/flash_attention.py:102", share=attn_recs[0]["share"],
+                 grad_cases=attn_grad_recs),
         headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
                  "selftoktokenizer_tpu/ops/q8_matmul.py:75",
                  quantize_ms=q8_recs[0]["quantize_ms"]),

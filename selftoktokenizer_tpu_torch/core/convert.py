@@ -8,7 +8,9 @@ here: ``[in, out]`` matmul weights -> ``[out, in]``, HWIO conv kernels ->
 OIHW, flattened ``[p*p*C, D]`` patch-embed weights -> conv ``[D, C, p, p]``,
 depth-stacked block leaves -> per-block entries, the separate ``last_block``
 -> ``joint_blocks[depth-1]``. The resulting names are those of a reference
-checkpoint, so loading is ``load_state_dict(strict=True)``. Nothing here
+checkpoint, so loading is ``load_state_dict(strict=True)``. The maps are
+linear in each leaf, so ``tokenizer_state_dict`` also carries a gradient
+tree or an optimizer's parameters across by the same names. Nothing here
 imports JAX.
 """
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from selftoktokenizer_tpu_torch.models.tokenizer import ImageTokenizer, TokenizerConfig
+from selftoktokenizer_tpu_torch.models.vq import VQState
 from selftoktokenizer_tpu_torch.models.vae import SDVAE, VAEConfig
 
 
@@ -143,18 +146,35 @@ def mmdit_state_dict(p, cfg):
     return out
 
 
+def tokenizer_state_dict(tree, tcfg: TokenizerConfig):
+    """{'encoder': ..., ['model': ...]} of numpy leaves -> the reference-named
+    state dict of the ImageTokenizer (``encoder.*``, ``model.*``)."""
+    sd = {"encoder." + k: v
+          for k, v in encoder_state_dict(tree["encoder"], tcfg.encoder).items()}
+    if "model" in tree:
+        sd.update({"model." + k: v
+                   for k, v in mmdit_state_dict(tree["model"], tcfg.decoder).items()})
+    return sd
+
+
 def tokenizer_from_jax_tree(tree, tcfg: TokenizerConfig) -> ImageTokenizer:
     """{'encoder': ..., ['model': ...]} of numpy leaves -> ImageTokenizer
     (on the CPU, fp32; encode-only when the tree has no 'model')."""
-    encode_only = "model" not in tree
-    tok = ImageTokenizer(tcfg, encode_only=encode_only)
-    sd = {"encoder." + k: v
-          for k, v in encoder_state_dict(tree["encoder"], tcfg.encoder).items()}
-    if not encode_only:
-        sd.update({"model." + k: v
-                   for k, v in mmdit_state_dict(tree["model"], tcfg.decoder).items()})
-    tok.load_state_dict(sd, strict=True)
+    tok = ImageTokenizer(tcfg, encode_only="model" not in tree)
+    tok.load_state_dict(tokenizer_state_dict(tree, tcfg), strict=True)
     return tok
+
+
+def vq_state_from_jax(state) -> VQState:
+    """The JAX package's VQState (a NamedTuple, numpy leaves) -> the port's
+    (CPU tensors; steps int64, the two flags bool)."""
+    return VQState(
+        embed=_t(state.embed), cluster_size=_t(state.cluster_size),
+        embed_avg=_t(state.embed_avg), timestep_p_over_c=_t(state.timestep_p_over_c),
+        count=_t(state.count),
+        steps=torch.tensor(int(np.asarray(state.steps)), dtype=torch.int64),
+        initted=torch.tensor(bool(np.asarray(state.initted))),
+        tpc_initted=torch.tensor(bool(np.asarray(state.tpc_initted))))
 
 
 def _resnet(out, pre, p):

@@ -6,6 +6,10 @@ The modules own the weights under the reference checkpoint's names
 ``x_embedder.proj.weight`` ...); the ``*_apply`` functions, named as in the
 reference, do the work. Feature maps are NHWC.
 
+With ``cfg.gradient_checkpointing`` every dual block runs under
+``torch.utils.checkpoint`` while gradients are recorded. In training the
+query attention stays plain fp32 ``sdpa`` (``fast_attn=False``).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md queue
 item): the bidirectional, zero-init, concat, qformer and vit encoder modes
 and ``attn_mask``.
@@ -19,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from selftoktokenizer_tpu_torch.models import vq as vq_mod
@@ -185,8 +190,10 @@ class QformerEncoder(nn.Module):
         max_sz = cfg.pos_embed_max_size
         grid = max_sz if max_sz else cfg.input_size // cfg.patch_size
         self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, cfg.hidden_size)
-        self.register_buffer("pos_embed", torch.from_numpy(
-            sincos_2d(cfg.hidden_size, grid)).float()[None])
+        # a sincos table at init, and trained like every other leaf
+        # (torch.tensor, not from_numpy: built on the default device)
+        self.pos_embed = nn.Parameter(torch.tensor(
+            sincos_2d(cfg.hidden_size, grid), dtype=torch.float32)[None])
         self.final_layer_norm = LayerNormWeight(cfg.encoder_out_dim)
         self.final_layer_norm2 = LayerNormWeight(cfg.code_dim)
         self.final_layer_norm3 = LayerNormWeight(cfg.encoder_hidden_size)
@@ -327,12 +334,21 @@ def _dual_trunk(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
     if trunk_dtype is not None:
         x = x.to(trunk_dtype)
     query = p.query_tokens.expand(x.shape[0], cfg.K, cfg.query_dim).to(x.dtype)
-    for blk in p.blocks:
+
+    def block(blk, x, query):
         mods = dual_block_mods(blk, positions)
         # the mods come out fp32; cast so modulate/gate do not promote the
         # query stream back to fp32 on the bf16 path
         mods = tuple(m if m is None else m.to(query.dtype) for m in mods)
-        x, query = dual_block_apply(blk, cfg, x, query, mods, fast_attn=fast_attn)
+        return dual_block_apply(blk, cfg, x, query, mods, fast_attn=fast_attn)
+
+    remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+    for blk in p.blocks:
+        if remat:
+            x, query = torch.utils.checkpoint.checkpoint(block, blk, x, query,
+                                                         use_reentrant=False)
+        else:
+            x, query = block(blk, x, query)
     return query
 
 

@@ -1,5 +1,5 @@
-"""Rectified flow: validation schedules and the Euler sampler (counterpart
-of the reference ``models/flow.py:29-139``).
+"""Rectified flow: validation schedules, the Euler sampler and the
+flow-matching training loss (counterpart of the reference ``models/flow.py``).
 
 The sampler is a Python loop over the steps. The per-step token counts
 ``k_i = diti.to_indices(timestep_map[i])`` are precomputed into a [steps]
@@ -41,6 +41,12 @@ def make_schedule(num_timesteps, start=1.0, schedule="uniform", shift=1.0,
         "scheduled_t_prev": scheduled[1:].astype(np.float32),
         "timestep_map": (scheduled[:-1] * TRADITION).astype(np.float32),
     }
+
+
+def q_sample(x, t, noise):
+    """x_t = t*noise + (1-t)*x."""
+    t = t.reshape(t.shape[0], *([1] * (x.ndim - 1)))
+    return t * noise + (1 - t) * x
 
 
 def euler_step(x, v, a_t, a_prev, parameterization="velocity"):
@@ -108,3 +114,68 @@ def p_sample_loop(model_fn, sched, noise, encoder_hidden_states, step_k=None,
             v = v_un + cfg_scale * (v_c - v_un)
         img, _ = euler_step(img, v, sched_t[i], sched_prev[i], parameterization)
     return img
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+def mean_flat(t):
+    return torch.mean(t.reshape(t.shape[0], -1), dim=1)
+
+
+def sum_flat(t):
+    return torch.sum(t.reshape(t.shape[0], -1), dim=1)
+
+
+def training_losses(model_fn, x_start, t, noise, parameterization="velocity",
+                    force_recon=False, recon_ratio=1.0, loss_mask=None,
+                    drop_ids=None):
+    """Flow-matching loss and its stratified logging.
+
+    model_fn(x_t, t) -> velocity (the caller closes over the conditioning).
+    Returns a dict with 'loss' and 'mse' per sample and the scalars 'small'
+    (t <= 0.35), 'mid', 'large' (t > 0.7) and 'uncon' (the dropped samples'
+    mse) of the mse."""
+    x_t = q_sample(x_start, t, noise)
+    if parameterization == "x0":
+        target = x_start
+    elif parameterization == "eps":
+        target = noise
+    elif parameterization == "velocity":
+        target = noise - x_start
+    else:
+        raise NotImplementedError(parameterization)
+
+    v = model_fn(x_t, t)
+    v_gt = noise - x_start
+    if force_recon:
+        model_output = x_t - t.reshape(-1, *([1] * (x_t.ndim - 1))) * v
+        target = x_start
+    else:
+        model_output = v
+
+    terms = {}
+    se = (target - model_output) ** 2
+    if loss_mask is not None:
+        lm = loss_mask[:, :, :, None].expand(se.shape).to(se.dtype)
+        terms["loss"] = sum_flat(se * lm) / sum_flat(lm)
+    else:
+        terms["loss"] = mean_flat(se)
+    mse = mean_flat(se)
+    terms["mse"] = mse
+
+    def strat(cond):
+        n = torch.sum(cond)
+        m = torch.sum(torch.where(cond, mse, 0.0)) / torch.clamp(n, min=1)
+        return torch.where(n > 0, m, torch.zeros_like(m))
+
+    terms["small"] = strat(t <= 0.35)
+    terms["mid"] = strat((t > 0.35) & (t <= 0.7))
+    terms["large"] = strat(t > 0.7)
+    terms["uncon"] = (torch.zeros((), device=mse.device) if drop_ids is None
+                      else strat(drop_ids))
+    if recon_ratio != 1.0 and force_recon:
+        terms["loss"] = (recon_ratio * terms["loss"]
+                         + (1 - recon_ratio) * mean_flat((v_gt - v) ** 2))
+    return terms

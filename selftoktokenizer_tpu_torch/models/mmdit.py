@@ -13,10 +13,16 @@ two kernel calls per block (``renderer_apply``). Every linear goes through
 kernel. The context stream's per-position adaLN table depends only on the
 weights and is computed once (``precompute_context_mods``).
 
+Training: ``mmdit_apply`` takes the CFG condition drop (``drop_ids``) and a
+conditioning vector ``y``, and with ``context_see_xt=False`` takes the
+renderer's route (two key-masked attention calls a block). With
+``cfg.use_checkpoint`` every joint block runs under
+``torch.utils.checkpoint`` while gradients are recorded.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md queue
 item): ``register_length > 0`` under CFG
-(``mmdit_cfg_inference``), ``mmdit_cfg_batched``, ``context_see_xt=False``,
-pooled conditioning, qk-norm 'ln', the 'pos_t_emb' mode.
+(``mmdit_cfg_inference``), ``mmdit_cfg_batched``, pooled conditioning,
+qk-norm 'ln', the 'pos_t_emb' mode.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from selftoktokenizer_tpu_torch.models.encoder import (
@@ -68,6 +75,7 @@ class MMDiTConfig:
     # takes the kernel route (ops.attention.serving_attention)
     use_flash_attention: bool = True
     serving_attention: bool = True
+    # recompute each joint block's activations in the backward
     use_checkpoint: bool = False
     hidden_override: Optional[int] = None
 
@@ -175,8 +183,9 @@ class MMDiT(nn.Module):
             # part of the checkpoint; only pooled conditioning reads it
             self.y_embedder = TimestepEmbedder(D, dim_freq=cfg.adm_in_channels)
         base = 1000 + 8 * np.arange(cfg.K) if cfg.diti_positions else np.arange(cfg.K)
-        self.register_buffer("context_pos_embed", torch.from_numpy(
-            sincos_1d(cfg.context_dim, base.astype(np.float32))).float()[None])
+        # a sincos table at init, and trained like every other leaf
+        self.context_pos_embed = nn.Parameter(torch.tensor(
+            sincos_1d(cfg.context_dim, base.astype(np.float32)), dtype=torch.float32)[None])
         if cfg.register_length > 0:
             self.register = nn.Parameter(torch.empty(1, cfg.register_length, D))
         self.joint_blocks = nn.ModuleList(
@@ -295,14 +304,20 @@ def _trunk(params: MMDiT, cfg: MMDiTConfig, context, x, c, ctx_mods, key_mask=No
     """depth-1 joint blocks + the final pre-only block + final layer."""
     if ctx_mods is not None:
         ctx_mods = ctx_mods.to(context.dtype)
+    remat = cfg.use_checkpoint and torch.is_grad_enabled()
+
+    def block(bp, context, x, pos_mods, last):
+        def fn(context, x):
+            return joint_block_apply(bp, cfg, context, x, c, pos_mods=pos_mods,
+                                     key_mask=key_mask, last=last, ctx_key_mask=ctx_key_mask)
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, context, x, use_reentrant=False)
+        return fn(context, x)
+
     blocks = list(params.joint_blocks)
     for i, bp in enumerate(blocks[:-1]):
-        context, x = joint_block_apply(
-            bp, cfg, context, x, c,
-            pos_mods=None if ctx_mods is None else ctx_mods[i], key_mask=key_mask,
-            ctx_key_mask=ctx_key_mask)
-    _, x = joint_block_apply(blocks[-1], cfg, context, x, c, key_mask=key_mask,
-                             last=True, ctx_key_mask=ctx_key_mask)
+        context, x = block(bp, context, x, None if ctx_mods is None else ctx_mods[i], False)
+    _, x = block(blocks[-1], context, x, None, True)
     return final_layer_apply(params.final_layer, x, c)
 
 
@@ -329,16 +344,19 @@ def _embed_x(params: MMDiT, cfg: MMDiTConfig, x):
 
 
 def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
-                mask=None, context_see_xt=True, ctx_mods=None):
-    """MMDiT forward, eval semantics.
+                mask=None, y=None, context_see_xt=True, ctx_mods=None, drop_ids=None):
+    """MMDiT forward.
 
     x: NHWC noised latents [B,h,w,C]; t: [B] in [0,1] (scaled x1000 inside);
     encoder_hidden_states: [B,Lc,encoder_hidden_size], Lc a prefix of K;
-    mask: [B,Lc] bool. Returns the NHWC velocity field."""
-    if not context_see_xt:
-        raise NotImplementedError(
-            "context_see_xt=False (the full [B,1,L,L] mask) is not ported "
-            "yet: ROADMAP.md queue item 'training'")
+    mask: [B,Lc] bool; y: optional [B, hidden] added to the conditioning;
+    drop_ids: optional [B] bool, the CFG condition drop of training (a
+    dropped sample's context and mask are zeroed unless t = 1). With
+    context_see_xt=False the context rows attend over the context keys only
+    (the reference's full [B,1,L,L] mask): two key-masked calls a block, as
+    the renderer makes; a context row with every context key masked gives
+    the uniform mean of its keys where the full mask would give NaN.
+    Returns the NHWC velocity field."""
     B = x.shape[0]
     xt, gh, gw = _embed_x(params, cfg, x)
     c = timestep_embedder_apply(params.t_embedder, t * 1000.0).to(xt.dtype)
@@ -351,14 +369,23 @@ def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
         mask = torch.ones((B, Lc), dtype=torch.bool, device=x.device)
     if ctx_mods is not None and ctx_mods.shape[1] != cfg.register_length + Lc:
         ctx_mods = ctx_mods[:, :cfg.register_length + Lc]
+    if drop_ids is not None:
+        drop = drop_ids & (t * 1000.0 != 1000.0)
+        context = torch.where(drop[:, None, None], torch.zeros_like(context), context)
+        mask = mask & ~drop[:, None]
+    if y is not None:
+        c = c + y
     if cfg.register_length > 0:
         context = torch.cat(
             [params.register.to(context.dtype).expand(B, -1, -1), context], dim=1)
 
     key_mask = build_decode_key_mask(mask, xt.shape[1], cfg.register_length)
+    ctx_key_mask = None if context_see_xt else build_decode_key_mask(
+        mask, 0, cfg.register_length)
     if ctx_mods is None:
         ctx_mods = precompute_context_mods(params, cfg)
-    out = _trunk(params, cfg, context, xt, c, ctx_mods, key_mask=key_mask)
+    out = _trunk(params, cfg, context, xt, c, ctx_mods, key_mask=key_mask,
+                 ctx_key_mask=ctx_key_mask)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
 
 

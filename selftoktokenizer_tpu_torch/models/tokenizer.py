@@ -1,7 +1,11 @@
-"""ImageTokenizer composite: config assembly and the module that holds the
-encoder and the decoder (counterpart of the reference
-``models/tokenizer.py:32-103``). The YAML ``tokenizer.params`` schema of the
-reference configs is consumed unchanged.
+"""ImageTokenizer composite: config assembly, the module that holds the
+encoder and the decoder, reference state-dict loading and the training loss
+graphs (counterpart of the reference ``models/tokenizer.py``). The YAML
+``tokenizer.params`` schema of the reference configs is consumed unchanged.
+
+The losses take every random draw of the reference as an optional input
+(``t``, ``noise``, ``drop_ids`` and the quantizer's draws); what is not
+given is drawn from the ``torch.Generator`` passed as ``rng``.
 """
 
 from __future__ import annotations
@@ -13,9 +17,15 @@ import torch
 from torch import nn
 
 from selftoktokenizer_tpu_torch.core.config import none_str as _none
+from selftoktokenizer_tpu_torch.models import flow as flow_mod
+from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.models.diti import make_diti
-from selftoktokenizer_tpu_torch.models.encoder import EncoderConfig, QformerEncoder
-from selftoktokenizer_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+from selftoktokenizer_tpu_torch.models.encoder import (
+    EncoderConfig, QformerEncoder, _embed_patches, encoder_apply, get_encoder_mask,
+    get_encoder_outs)
+from selftoktokenizer_tpu_torch.models.mmdit import (
+    MMDiT, MMDiTConfig, mmdit_apply, renderer_apply)
+from selftoktokenizer_tpu_torch.ops.norms import layer_norm
 from selftoktokenizer_tpu_torch.models.zoo import (
     build_decoder_config, build_encoder_config)
 
@@ -110,7 +120,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
     fan-in bounds for matrices and conv kernels, std-0.02 normals for the
     timestep embedders and the query tokens, std hidden^-0.5 normals for the
     renderer's mask token and positional embedding, an l2-normalised
-    codebook, norm weights one.
+    codebook, norm weights one, the sincos position tables as built.
 
     The reference zero-initialises every adaLN projection and every bias,
     which closes every attention gate: the attention output then never
@@ -121,7 +131,11 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
     for name, t in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         parent = name.rsplit(".", 1)[0] if "." in name else ""
+        owner = module.get_submodule(parent)
         zero = False
+        if leaf == "context_pos_embed" or (leaf == "pos_embed"
+                                           and isinstance(owner, QformerEncoder)):
+            continue                          # sincos tables, as built
         if name.endswith("_codebook.embed"):
             t.normal_(generator=generator)
             t.div_(torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_(min=1e-12))
@@ -151,3 +165,154 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
                 t.normal_(std=zero_init_std, generator=generator)
             else:
                 t.zero_()
+
+
+def tokenizer_from_state_dict(sd, cfg: TokenizerConfig, encode_only=False):
+    """A reference ImageTokenizer / ImageRenderer state dict (``encoder.*``
+    and ``model.*``, optional ``module.`` prefixes) -> (ImageTokenizer on the
+    CPU in fp32, loaded strictly; the quantizer's VQState when the dict holds
+    its EMA buffers, else None). ``encode_only`` reads the encoder alone;
+    keys outside the two halves are not read."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    with torch.device("meta"):
+        tok = ImageTokenizer(cfg, encode_only=encode_only)
+    own = set(tok.state_dict())
+    q = "encoder.quantizer."
+    halves = ("encoder.",) if encode_only else ("encoder.", "model.")
+    load = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()
+            if k in own or (k.startswith(halves) and not k.startswith(q))}
+    tok.load_state_dict(load, strict=True, assign=True)
+    buffers = {k[len(q):]: v for k, v in sd.items() if k.startswith(q) and k not in own}
+    vq_state = None
+    if buffers:
+        buffers["_codebook.embed"] = sd[q + "_codebook.embed"]
+        vq_state = vq_mod.vq_state_from_state_dict(buffers, cfg.k)
+    return tok, vq_state
+
+
+# ---------------------------------------------------------------------------
+# training losses
+# ---------------------------------------------------------------------------
+
+def pre_vq_outs(p: QformerEncoder, cfg: TokenizerConfig, x):
+    """Encoder trunk up to the quantizer input: (outs [B,K,hidden], x_emb)."""
+    x_emb = _embed_patches(p, cfg.encoder, x)
+    outs = get_encoder_outs(p, cfg.encoder, x_emb)
+    if cfg.encoder.pre_norm:
+        outs = layer_norm(outs, p.final_layer_norm.weight, p.final_layer_norm.bias)
+    return outs, x_emb
+
+
+def resolution_shift(latent_h, latent_w):
+    """Resolution-dependent flow shift: 1.0 below 2048 latent pixels, 1.878
+    at and above."""
+    return 1.0 if (latent_h * latent_w / 4096.0) < 0.5 else 1.878
+
+
+def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_state=None,
+                   full_tokens=False, train_quantizer=True, ema_encoder=None, L2_lr=0.0,
+                   t=None, noise=None, drop_ids=None, gumbel_noise=None, kmeans_idx=None,
+                   react_uniforms=None, warm_ids=None):
+    """Training forward: sample t, map it to a token depth, encode and
+    quantize, flow-matching loss with the CFG condition drop.
+
+    x: NHWC latents [B,h,w,C]. rng: a torch.Generator for the draws not
+    passed in: t [B] (uniform, before the shift), noise (x-shaped normal),
+    drop_ids [B] bool, and the quantizer's (``vq.vq_train_apply``).
+    ema_encoder: a QformerEncoder holding an EMA copy of the encoder, for
+    the L2 anchor weighted by L2_lr. Returns (loss, aux) with aux['vq_state']
+    the new VQ state, aux['log_dict'] and aux['ids']."""
+    B, h, w, _ = x.shape
+    dev = x.device
+    shift = resolution_shift(h, w)
+    diti = cfg.make_diti()
+    drop_p = cfg.decoder.class_dropout_prob
+    if rng is None and (t is None or noise is None or (drop_ids is None and drop_p > 0)):
+        raise ValueError("tokenizer_loss: pass rng (a torch.Generator) or t, noise and drop_ids")
+    if t is None:
+        t = torch.rand((B,), generator=rng, device=dev)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
+    if drop_ids is None and drop_p > 0:
+        drop_ids = torch.rand((B,), generator=rng, device=dev) < drop_p
+    t, noise = t.to(dev), noise.to(dev)
+    drop_ids = None if drop_ids is None else drop_ids.to(dev)
+
+    scale = 1000.0 if cfg.stages is not None else 1.0
+    if full_tokens:
+        k_batch = diti.to_indices(torch.ones_like(t) * scale)
+    else:
+        k_batch = diti.to_indices(torch.clamp(cfg.t2k * t, 0, 1.0) * scale)
+    t = flow_mod.shift_t(t, shift)
+
+    enc = tok.encoder
+    outs, _ = pre_vq_outs(enc, cfg, x)
+    if train_quantizer and vq_state is not None:
+        outs_q, ids, quan_loss, new_vq_state, vq_logs = vq_mod.vq_train_apply(
+            enc.quantizer, vq_state, outs, cfg.quantizer, rng=rng, gumbel_noise=gumbel_noise,
+            kmeans_idx=kmeans_idx, react_uniforms=react_uniforms, warm_ids=warm_ids)
+    else:
+        outs_q, ids, quan_loss, vq_logs = vq_mod.vq_apply(enc.quantizer, outs)
+        new_vq_state = vq_state
+    if cfg.encoder.post_norm:
+        outs_q = layer_norm(outs_q, enc.final_layer_norm3.weight, enc.final_layer_norm3.bias)
+
+    enc_mask = get_encoder_mask(cfg.encoder, k_batch.to(dev))
+    ehs = outs_q * enc_mask[..., None].to(outs_q.dtype)
+
+    def model_fn(x_t, tt):
+        return mmdit_apply(tok.model, cfg.decoder, x_t, tt, ehs, mask=enc_mask,
+                           context_see_xt=cfg.context_see_xt, drop_ids=drop_ids)
+
+    terms = flow_mod.training_losses(
+        model_fn, x, t, noise,
+        parameterization=cfg.diffusion.get("parameterization", "velocity"),
+        force_recon=cfg.diffusion.get("force_recon", False), drop_ids=drop_ids)
+    batch_mse = torch.mean(terms["loss"])
+    loss = batch_mse + quan_loss
+
+    if ema_encoder is not None and L2_lr > 0:
+        # pull the pre-VQ features toward the EMA encoder's, leaving out each
+        # row's last active token
+        with torch.no_grad():
+            ema_outs, _ = pre_vq_outs(ema_encoder, cfg, x)
+        last_idx = torch.sum(enc_mask, dim=1) - 1
+        l2_mask = enc_mask & (torch.arange(enc_mask.shape[1], device=dev)[None, :]
+                              != last_idx[:, None])
+        m = l2_mask[..., None].to(outs.dtype)
+        loss = loss + L2_lr * torch.mean((outs * m - ema_outs * m) ** 2)
+
+    log_dict = {
+        "loss": loss.detach(), "dm_mse": batch_mse.detach(),
+        "loss_small": terms["small"].detach(), "loss_mid": terms["mid"].detach(),
+        "loss_large": terms["large"].detach(), "loss_uncon": terms["uncon"].detach(),
+        **{f"vq_{k}": v for k, v in vq_logs.items()},
+    }
+    return loss, {"vq_state": new_vq_state, "log_dict": log_dict, "ids": ids}
+
+
+def renderer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x):
+    """ImageRenderer forward: every token active, one-step reconstruction.
+    Returns (ids, the quantized hidden states, pred_x0)."""
+    B = x.shape[0]
+    d = torch.full((B,), cfg.k - 1, dtype=torch.int32, device=x.device)
+    ehs, _, ori_hidden, mask, _, _, ids = encoder_apply(tok.encoder, cfg.encoder, x, d=d)
+    pred_x0 = renderer_apply(tok.model, cfg.decoder, ehs, mask=mask)
+    return ids, ori_hidden, pred_x0
+
+
+def renderer_train_loss(model: MMDiT, encoder: QformerEncoder, cfg: TokenizerConfig, x):
+    """The one-step renderer's training loss against a frozen tokenizer: the
+    tokens come from ``encoder`` without gradient, only the renderer MMDiT
+    learns. Returns (loss, log_dict) with the batch's code-usage
+    perplexity."""
+    B = x.shape[0]
+    d = torch.full((B,), cfg.k - 1, dtype=torch.int32, device=x.device)
+    with torch.no_grad():
+        ehs, _, _, mask, _, _, ids = encoder_apply(encoder, cfg.encoder, x, d=d)
+    pred_x0 = renderer_apply(model, cfg.decoder, ehs, mask=mask)
+    loss = torch.mean((pred_x0 - x) ** 2)
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=cfg.encoder.codebook_size).float()
+    p = counts / torch.clamp(torch.sum(counts), min=1)
+    ppl = torch.exp(-torch.sum(p * torch.log(p + 1e-10)))
+    return loss, {"loss": loss.detach(), "recon_mse": loss.detach(), "batch_perplexity": ppl}

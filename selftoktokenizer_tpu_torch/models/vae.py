@@ -152,6 +152,18 @@ class SDVAE(nn.Module):
         self.decoder = VAEDecoder(self.cfg)
 
 
+def vae_from_state_dict(sd) -> SDVAE:
+    """An SD3 VAE state dict (``encoder.*`` and ``decoder.*``, the
+    ``first_stage_model.`` prefix already taken off) -> SDVAE on the CPU,
+    fp32, loaded strictly. The width comes from ``encoder.conv_in``; keys
+    outside the two halves are not read."""
+    sd = {k: v.float() for k, v in sd.items() if k.startswith(("encoder.", "decoder."))}
+    with torch.device("meta"):
+        vae = SDVAE(VAEConfig(ch=sd["encoder.conv_in.weight"].shape[0]))
+    vae.load_state_dict(sd, strict=True, assign=True)
+    return vae
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------

@@ -19,8 +19,15 @@ with ``wgmma`` in bf16 and overlaps one tile's exponentials with the
 previous tile's P V. Any Lq and Lk are accepted: the ragged tiles are
 masked in the kernel. q, k and v may be strided views (the qkv split's);
 the output is allocated in [B, Lq, H, D] memory and returned as a
-[B, H, Lq, D] view, so merging the heads after it is free. Forward only;
-the backward goes with training.
+[B, H, Lq, D] view, so merging the heads after it is free.
+
+Gradients: ``flash_sdpa_key_mask`` is a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on a CPU tensor) and whose backward
+is the reference's ``_make_flash_vjp`` backward, which is an fp32 recompute
+and no TPU kernel: the scores are rebuilt in fp32 with the key bias, then
+P = softmax, dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
+dQ = dS K * scale and dK = dS^T Q * scale, each cast to its input's type;
+the mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -145,22 +152,72 @@ def flash_sdpa_key_mask(q, k, v, key_mask=None):
     if key_mask is not None and (key_mask.dtype != torch.bool
                                  or tuple(key_mask.shape) != (B, Lk)):
         raise ValueError("flash_sdpa_key_mask: key_mask must be bool [B, Lk]")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise ValueError("flash_sdpa_key_mask is forward only: inputs must not require grad")
     if not (q.device == k.device == v.device) or \
             (key_mask is not None and key_mask.device != q.device):
         raise ValueError("flash_sdpa_key_mask: inputs lie on different devices")
+    if q.device.type == "cuda":
+        if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+            raise ValueError("flash_sdpa_key_mask: the kernel takes bf16 or fp32, one type for q, k, v")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"flash_sdpa_key_mask: the kernel takes head dim 64 or 128, got {D}")
+        if Lq == 0 or Lk == 0 or B * H == 0 or B * H > GRID_Y_LIMIT:
+            raise ValueError(f"flash_sdpa_key_mask: unsupported sizes B*H={B * H}, Lq={Lq}, Lk={Lk}")
+    elif q.device.type != "cpu":
+        raise ValueError(f"flash_sdpa_key_mask: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashSdpaKeyMask.apply(q, k, v, key_mask)
+    return _forward(q, k, v, key_mask)
+
+
+def _forward(q, k, v, key_mask):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if q.device.type == "cpu":
         return flash_sdpa_key_mask_plain(q, k, v, key_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_sdpa_key_mask: unsupported device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise ValueError("flash_sdpa_key_mask: the kernel takes bf16 or fp32, one type for q, k, v")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_sdpa_key_mask: the kernel takes head dim 64 or 128, got {D}")
-    if Lq == 0 or Lk == 0 or B * H == 0 or B * H > GRID_Y_LIMIT:
-        raise ValueError(f"flash_sdpa_key_mask: unsupported sizes B*H={B * H}, Lq={Lq}, Lk={Lk}")
     return _launch(q, k, v, key_mask)
+
+
+def flash_sdpa_key_mask_backward(q, k, v, key_mask, do):
+    """(dq, dk, dv) of the attention at (q, k, v, key_mask) for the output
+    gradient do, recomputed in fp32 as the reference's backward does. The
+    [B,H,Lq,Lk] passes are few: the scale and the key bias are applied in
+    the first product's epilogue, and dS is formed in dP's memory."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf = (t.float().reshape(B * H, -1, D) for t in (q, k, v))
+    kt = kf.transpose(1, 2)
+    if key_mask is None:
+        s = torch.bmm(qf, kt).mul_(scale)
+    else:
+        bias = torch.where(key_mask, 0.0, NEG).to(torch.float32)
+        s = torch.baddbmm(bias[:, None, None, :].expand(B, H, 1, Lk).reshape(B * H, 1, Lk),
+                          qf, kt, alpha=scale)
+    p = torch.softmax(s, dim=-1)
+    del s
+    dof = do.float().reshape(B * H, Lq, D)
+    dv = torch.bmm(p.transpose(1, 2), dof)
+    dp = torch.bmm(dof, vf.transpose(1, 2))
+    ds = dp.sub_(torch.sum(dp * p, dim=-1, keepdim=True)).mul_(p)
+    del p
+    dq = torch.bmm(ds, kf).mul_(scale)
+    dk = torch.bmm(ds.transpose(1, 2), qf).mul_(scale)
+    return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype))
+
+
+class _FlashSdpaKeyMask(torch.autograd.Function):
+    """The kernel forward on detached inputs; the fp32 recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        ctx.save_for_backward(q, k, v, key_mask)
+        return _forward(q.detach(), k.detach(), v.detach(), key_mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask = ctx.saved_tensors
+        dq, dk, dv = flash_sdpa_key_mask_backward(q, k, v, key_mask, do)
+        return dq, dk, dv, None
 
 
 def _launch(q, k, v, key_mask):

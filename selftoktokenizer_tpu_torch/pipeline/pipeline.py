@@ -10,12 +10,16 @@ reference ``pipeline/pipeline.py``).
 
 Images and latents are NHWC. The pipeline runs on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no explicit ``device="cpu"`` it
-raises. Weights are seeded random unless modules are handed in with
-``set_weights`` (loading a reference ``.pth`` is not ported yet).
+raises. Weights come from a reference ``.pth`` (``ckpt_path``, ``vae_path``;
+``load_torch_checkpoint`` and the prefix handling of the reference loader),
+from modules handed in with ``set_weights``, or are seeded random.
 
 Precision tiers. ``encode_precision='highest'``: fp32 trunk, plain fp32
 attention, exact-fp32 VQ kernel, and TF32 switched off for matmuls and for
-cuDNN convolutions (cuDNN's default is on). ``'default'``: bf16 trunk, query
+cuDNN convolutions (cuDNN's default is on). ``'high'``: the same fp32 trunk
+with TF32 switched on for its matmuls and convolutions, inside the call only
+(Hopper has no 3-pass bf16 tier; TF32 is the nearest one). ``vq_argmax``
+keeps its ids exact at every tier. ``'default'``: bf16 trunk, query
 attention through the CUDA attention kernel. Decode runs in ``decode_dtype``
 (bf16 or fp32) with the joint attention through the kernel in both.
 ``decode_dtype='int8'`` keeps bf16 activations and swaps the decoder's
@@ -35,12 +39,27 @@ from selftoktokenizer_tpu_torch.models.encoder import encoder_apply, encoder_mar
 from selftoktokenizer_tpu_torch.models.mmdit import (
     mmdit_apply, mmdit_uncond_xonly, precompute_context_mods, renderer_apply)
 from selftoktokenizer_tpu_torch.models.tokenizer import (
-    ImageTokenizer, TokenizerConfig, init_weights_, tokenizer_config_from_params)
+    ImageTokenizer, TokenizerConfig, init_weights_, tokenizer_config_from_params,
+    tokenizer_from_state_dict)
 from selftoktokenizer_tpu_torch.models.vae import (
-    SD3LatentFormat, SDVAE, VAEConfig, vae_decode, vae_encode_mode)
+    SD3LatentFormat, SDVAE, VAEConfig, vae_decode, vae_encode_mode, vae_from_state_dict)
 from selftoktokenizer_tpu_torch.ops import routing
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm
 from selftoktokenizer_tpu_torch.ops.q8_matmul import quantize_model_
+
+
+def load_torch_checkpoint(path):
+    """A reference .pth -> {name: tensor} on the CPU: the ``state_dict``
+    entry when the file holds one, and only the entries that are tensors."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def _strip_prefix(sd, prefix):
+    n = len(prefix)
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
 def _resolve_device(device):
@@ -58,21 +77,23 @@ class SelftokPipeline:
     config); decoding_with_renderer(ids) -> images (a renderer config).
 
     cfg: the YAML config (AttrDict from core.config.load_config) in the
-    reference's schema. decode_dtype: torch.float32, torch.bfloat16 or
-    'int8' (bf16 activations, int8 decoder projections). zero_init_std: see
+    reference's schema. ckpt_path: a reference tokenizer .pth (``encoder.*``
+    and ``model.*``, under an optional ``state_dict`` entry and ``module.``
+    prefixes; with ``ema_decoder`` the ``ema_state_dict.*`` copy is read);
+    ``encode_only`` reads the encoder alone. The quantizer's EMA buffers,
+    when the file has them, become ``self.vq_state``. vae_path: an SD3 VAE
+    .pt (optional ``first_stage_model.`` prefix). decode_dtype:
+    torch.float32, torch.bfloat16 or 'int8' (bf16 activations, int8 decoder
+    projections). zero_init_std: see
     ``models.tokenizer.init_weights_`` (0 keeps the reference init, whose
     zero adaLN gates switch every attention off).
     """
 
     def __init__(self, cfg, ckpt_path=None, vae_path=None, datasize=256,
-                 steps=50, start=1.0, cfg_scale=1.0,
+                 steps=50, start=1.0, cfg_scale=1.0, ema_decoder=False,
                  decode_dtype=torch.float32, seed=0, cond_vary=True,
                  encode_precision="highest", encode_only=False, device=None,
                  zero_init_std=0.0):
-        if ckpt_path is not None or vae_path is not None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet: ROADMAP.md queue item "
-                "'.pth checkpoint input and a smoke.py counterpart'")
         self.int8_decode = decode_dtype == "int8"
         if self.int8_decode:
             decode_dtype = torch.bfloat16
@@ -103,11 +124,26 @@ class SelftokPipeline:
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        with torch.device(self.device):
-            tokenizer = ImageTokenizer(self.tcfg, encode_only=encode_only)
-            vae = SDVAE(VAEConfig())
-        init_weights_(tokenizer, gen, zero_init_std)
-        init_weights_(vae, gen, zero_init_std)
+        self.vq_state = None
+        if ckpt_path is not None:
+            sd = load_torch_checkpoint(ckpt_path)
+            if ema_decoder and any(k.startswith("ema_state_dict") for k in sd):
+                sd = _strip_prefix(sd, "ema_state_dict.")
+            tokenizer, self.vq_state = tokenizer_from_state_dict(
+                sd, self.tcfg, encode_only=encode_only)
+        else:
+            with torch.device(self.device):
+                tokenizer = ImageTokenizer(self.tcfg, encode_only=encode_only)
+            init_weights_(tokenizer, gen, zero_init_std)
+        if vae_path is not None:
+            vsd = load_torch_checkpoint(vae_path)
+            if any(k.startswith("first_stage_model.") for k in vsd):
+                vsd = _strip_prefix(vsd, "first_stage_model.")
+            vae = vae_from_state_dict(vsd)
+        else:
+            with torch.device(self.device):
+                vae = SDVAE(VAEConfig())
+            init_weights_(vae, gen, zero_init_std)
         self.set_weights(tokenizer, vae)
 
     def set_weights(self, tokenizer: ImageTokenizer = None, vae: SDVAE = None):
@@ -150,7 +186,7 @@ class SelftokPipeline:
         with routing.kernel_route(kernels):
             x0 = self._images_to_latents(self._to_device(images))
             serving = self.encode_precision == "default"
-            with _fp32_exact(not serving):
+            with _fp32_exact(_EXACT[self.encode_precision]):
                 return encoder_margins(
                     self.encoder, self.tcfg.encoder, x0,
                     trunk_dtype=torch.bfloat16 if serving else None,
@@ -219,9 +255,9 @@ class SelftokPipeline:
         x0 = self._images_to_latents(images)
         # 'default' is the bf16 serving path: bf16 trunk, kernel attention,
         # fast VQ scores. 'highest' keeps fp32 activations and plain fp32
-        # attention, with TF32 off.
+        # attention, with TF32 off; 'high' the same with TF32 on.
         serving = prec == "default"
-        with _fp32_exact(not serving):
+        with _fp32_exact(_EXACT[prec]):
             return encoder_apply(
                 self.encoder, self.tcfg.encoder, x0,
                 trunk_dtype=torch.bfloat16 if serving else None,
@@ -318,33 +354,34 @@ class SelftokPipeline:
         return (recon + 1.0) / 2.0
 
 
+# the TF32 setting of each encode tier: off, on, untouched (the bf16 trunk)
+_EXACT = {"highest": True, "high": False, "default": None}
+
+
 def _check_precision(prec):
-    if prec == "high":
-        raise NotImplementedError(
-            "encode_precision='high' is not ported yet: ROADMAP.md queue item "
-            "\"encode_precision='high'\"")
-    if prec not in ("highest", "default"):
-        raise ValueError(f"encode_precision must be 'highest' or 'default', got {prec!r}")
+    if prec not in _EXACT:
+        raise ValueError(
+            f"encode_precision must be 'highest', 'high' or 'default', got {prec!r}")
 
 
 class _fp32_exact:
-    """While active (enabled=True): TF32 off for CUDA matmuls and for cuDNN
-    convolutions, so fp32 means fp32. The previous settings come back on
-    exit."""
+    """While active: TF32 off (enabled=True) or on (enabled=False) for CUDA
+    matmuls and for cuDNN convolutions; enabled=None leaves both as they
+    are. The previous settings come back on exit."""
 
     def __init__(self, enabled=True):
         self.enabled = enabled
 
     def __enter__(self):
-        if self.enabled:
+        if self.enabled is not None:
             self._prev = (torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = not self.enabled
+            torch.backends.cudnn.allow_tf32 = not self.enabled
         return self
 
     def __exit__(self, *exc):
-        if self.enabled:
+        if self.enabled is not None:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = self._prev
         return False

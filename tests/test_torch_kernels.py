@@ -127,7 +127,7 @@ def test_wrappers_take_the_plain_version_on_cpu_and_do_not_count():
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     q, k, v = qkv(9, 1, 2, 64, 96)
     with pytest.raises(ValueError):
-        fa.flash_sdpa_key_mask(T(q).requires_grad_(), T(k), T(v))      # forward only
+        fa.flash_sdpa_key_mask(T(q), T(k), T(v), torch.ones(1, 96))     # the mask must be bool
     with pytest.raises(ValueError):
         fa.flash_sdpa_key_mask(T(q), T(k), T(v), torch.ones(1, 95, dtype=torch.bool))
     with pytest.raises(ValueError):

@@ -101,6 +101,3 @@ def test_out_of_slice_entry_points_raise(mm_pair):
     for fn in (t_mm.mmdit_cfg_inference, t_mm.mmdit_cfg_batched):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fn(model, tcfg, x, t, ehs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_mm.mmdit_apply(model, tcfg, torch.from_numpy(x), torch.from_numpy(t),
-                         torch.from_numpy(ehs), context_see_xt=False)

@@ -79,6 +79,35 @@ def test_decode_fp32_from_identical_ids(tiny, case):
     assert_images_close(tpipe.decode_latents(j_lat), j_img)
 
 
+def test_high_tier_is_taken_and_restores_the_tf32_flags(tiny, monkeypatch):
+    import selftoktokenizer_tpu_torch.pipeline.pipeline as t_pipeline_mod
+
+    tpipe, images = tiny[1], tiny[2]
+    seen = []
+    real = t_pipeline_mod.encoder_apply
+
+    def spy(*a, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                     kw.get("trunk_dtype"), kw.get("fast_attn")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_pipeline_mod, "encoder_apply", spy)
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for flags in ((False, True), (True, False)):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            high = tpipe.encoding(images, precision="high")
+            assert (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) == flags
+        highest = tpipe.encoding(images)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    # 'high': the fp32 trunk with TF32 on inside the call; 'highest': TF32 off
+    assert seen == [(True, True, None, False)] * 2 + [(False, False, None, False)]
+    # the CPU has no TF32: 'high' equals 'highest' here
+    assert torch.equal(high, highest)
+
+
 def test_decode_noise_from_generator_is_reproducible(tiny):
     tpipe = tiny[1]
     ids = np.zeros((1, 8), np.int64)
@@ -112,9 +141,8 @@ def test_k256_bucketed_decode_equals_single_loop_and_jax():
 
 def test_entry_points_raise_for_what_is_not_ported():
     cfg = load_config(TINY)
-    for kw in (dict(ckpt_path="x.pth"), dict(encode_precision="high")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SelftokPipeline(cfg, datasize=64, device="cpu", **kw)
+    with pytest.raises(ValueError, match="encode_precision"):
+        SelftokPipeline(cfg, datasize=64, device="cpu", encode_precision="medium")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SelftokPipeline(cfg, datasize=64)          # no GPU here, no silent CPU fallback
     # int8 and the renderer are ported: both build
