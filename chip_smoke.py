@@ -5,9 +5,13 @@ and 'default') + 50-step bf16 decode,
 the int8 decode (``decode_dtype='int8'``, through ``q8_matmul``), the
 one-step renderer in bf16 and int8, and training: three tokenizer train
 steps and two renderer train steps at batch 4, fp32 with TF32 off, the
-first of each held against the same step with the plain versions forced.
-Each path runs with every launch count set to 0 just before it and read
-just after.
+first of each held against the same step with the plain versions forced;
+the accumulated tokenizer step (``train_step_accum``) held against
+``train_step`` at batch 4 and timed at a global batch of 16 that no single
+step holds; the data-parallel step (``dp_train_step``) in a one-rank NCCL
+group, held against ``train_step``; and the SD3 VAE's trainer at its own
+widths (256 px, batch 8, bf16). Each path runs with every launch count set
+to 0 just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -74,10 +78,15 @@ RENDER_INT8_TOL = (3e-2, 6e-2)
 ATTN_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # a train step on the kernels against the same step on the plain versions
 # (fp32, TF32 off): the loss, and each gradient leaf (its largest error
-# against its largest value, and its cosine with the plain gradient)
+# against its largest value, and its cosine with the plain gradient); the
+# accumulated and the data-parallel steps are held against train_step by
+# the same rule
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_GRAD_COS = 0.9999
+# the accumulated / data-parallel step's VQ buffers against train_step's:
+# largest error within this fraction of the buffer's largest value
+TRAIN_VQ_TOL = 1e-5
 
 
 def log(msg):
@@ -1143,10 +1152,10 @@ def check_train_widths(tcfg, renderer):
         raise RuntimeError(f"not the flagship widths: {widths}")
 
 
-def hold_grads(name, named, plain):
-    """Each gradient leaf of the kernel step against the plain step's (on
-    the host): the largest error within TRAIN_GRAD_TOL of the leaf's largest
-    value, the cosine at least TRAIN_GRAD_COS."""
+def hold_grads(name, named, plain, ref="the plain step"):
+    """Each gradient leaf of the kernel step against the reference step's
+    (``ref``; on the host): the largest error within TRAIN_GRAD_TOL of the
+    leaf's largest value, the cosine at least TRAIN_GRAD_COS."""
     worst = (0.0, 1.0, "")
     for (n, p), r in zip(named, plain):
         g = p.grad.detach().float()
@@ -1157,16 +1166,16 @@ def hold_grads(name, named, plain):
         gn, rn = g.norm().item(), r.norm().item()
         cos = 1.0 if gn == rn == 0 else (g * r).sum().item() / max(gn * rn, 1e-30)
         if rel > TRAIN_GRAD_TOL or cos < TRAIN_GRAD_COS:
-            raise RuntimeError(f"{name}: grad of {n} differs from the plain step: "
+            raise RuntimeError(f"{name}: grad of {n} differs from {ref}'s: "
                                f"{rel} of its scale, cosine {cos}")
         worst = (max(worst[0], rel), min(worst[1], cos), n if rel >= worst[0] else worst[2])
-    log(f"  {name} grads vs plain step: {len(plain)} leaves, largest error {worst[0]:.3g} of "
+    log(f"  {name} grads vs {ref}: {len(plain)} leaves, largest error {worst[0]:.3g} of "
         f"the leaf's scale ({worst[2]}), smallest cosine {worst[1]:.8f}")
 
 
-def hold_loss(name, got, want):
+def hold_loss(name, got, want, ref="the plain step"):
     if not (math.isfinite(got) and abs(got - want) <= TRAIN_LOSS_RTOL * abs(want)):
-        raise RuntimeError(f"{name}: loss {got} differs from the plain step's {want}")
+        raise RuntimeError(f"{name}: loss {got} differs from {ref}'s {want}")
 
 
 def profile_train_step(fn, warm_s, label):
@@ -1437,17 +1446,282 @@ def renderer_train_path(card, do_profile, enc_sd, vq_state):
     return total
 
 
+# the accumulated step: held at the batch one step holds, timed at a
+# global batch one step cannot hold (about 16 x 12 GiB of activations)
+ACCUM_HOLD = (TRAIN_BATCH, 2)       # (global batch, microbatches)
+ACCUM_TIMED = (16, 4)
+ACCUM_TIMED_STEPS = 4
+
+
+def _tokenizer_draws(tcfg, B, gen):
+    dev = "cuda"
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    batch = torch.randn((B, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
+    C = tcfg.encoder.codebook_size
+    return batch, {"t": torch.rand((B,), generator=gen, device=dev),
+                   "noise": torch.randn(batch.shape, generator=gen, device=dev),
+                   "drop_ids": torch.arange(B, device=dev) % 4 == 1,
+                   "kmeans_idx": vq_mod.kmeans_init_indices(B * tcfg.k, C, gen),
+                   "react_uniforms": torch.rand((C,), generator=gen, device=dev)}
+
+
+def _margins(tok, tcfg, batch):
+    """Top-2 score gap of each token against the codebook the step
+    quantizes against (an initted state's)."""
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import pre_vq_outs
+    with torch.no_grad():
+        q = tok.encoder.quantizer
+        z = vq_mod.l2norm(vq_mod.project_in(q, pre_vq_outs(tok.encoder, tcfg, batch)[0]))
+        top2 = torch.topk(z @ q.embed.float().t(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _hold_against_train_step(name, state, tcfg, batch, draws, grads_fn, expect):
+    """``grads_fn`` (the accumulated or data-parallel step's gradient half)
+    against ``tr.tokenizer_grads`` (train_step's) from the same state and
+    draws: loss, every gradient leaf, the VQ buffers, ids outside the top-2
+    margin."""
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+    named = tr._trainable(state.model)
+    margins = _margins(state.model, tcfg, batch)
+    loss_g, aux, params = tr.tokenizer_grads(state, tcfg, batch, **dict(draws))
+    plain = [p.grad.detach().to("cpu", copy=True) for p in params]
+    loss_g, ids_g, vq_g = float(loss_g.detach()), aux["ids"], aux["vq_state"]
+    del aux
+    before = counts()
+    logs, vq, _ = grads_fn()
+    torch.cuda.synchronize()
+    c = tuple(a - b for a, b in zip(counts(), before))
+    if c != expect:
+        raise RuntimeError(f"{name}: launch counts {c}, expected {expect}")
+    hold_loss(name, float(logs["loss"]), loss_g, "train_step")
+    hold_grads(name, named, plain, "train_step")
+    del plain
+    worst = 0.0
+    for f in ("embed", "cluster_size", "embed_avg", "timestep_p_over_c", "count"):
+        a, b = getattr(vq, f).float(), getattr(vq_g, f).float()
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > TRAIN_VQ_TOL:
+            raise RuntimeError(f"{name}: VQ buffer {f} differs from train_step's by {rel} "
+                               "of its scale")
+        worst = max(worst, rel)
+    diff = logs["ids"] != ids_g
+    if int((diff & (margins >= VQ_MARGIN)).sum()) != 0:
+        raise RuntimeError(f"{name}: ids differ from train_step's outside the margin")
+    log(f"  {name} vs train_step: loss {float(logs['loss']):.8f} / {loss_g:.8f}, VQ buffers "
+        f"within {worst:.3g} of their scale, ids differing {int(diff.sum())}/{diff.numel()} "
+        f"(smallest margin {margins.min().item():.3g}), attention launches {c[1]}")
+
+
+def tokenizer_accum_and_dp_paths(card, do_profile):
+    """On one initted flagship train state (a fresh tokenizer after one
+    k-means init step at batch 4): path "tokenizer accum", the accumulated
+    step's gradients at a global batch 4 in 2 microbatches held against
+    train_step's, then ACCUM_TIMED_STEPS steps at a global batch 16 in 4;
+    path "tokenizer data-parallel, one rank", a one-rank NCCL group over a
+    FileStore, the data-parallel step's gradients (``accum_grads`` over the
+    group) held against train_step's, then
+    two dp_train_steps. Every count is set to 0 at the start of each path
+    and read at its end (train_step's reference calls included). Returns
+    the launch counts of the two paths."""
+    import os
+    import statistics
+    import tempfile
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models.tokenizer import (
+        ImageTokenizer, init_weights_, tokenizer_config_from_params)
+    from selftoktokenizer_tpu_torch.parallel import distributed as pdist
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    dev = "cuda"
+    tcfg = tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params))
+    check_train_widths(tcfg, renderer=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    with torch.device(dev):
+        tok = ImageTokenizer(tcfg)
+    init_weights_(tok, gen, zero_init_std=0.02)
+    tc = tr.TrainConfig()
+    state = tr.make_train_state(tok, tcfg, tc)
+    per_mb = tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1)
+
+    # path "tokenizer accum"
+    reset_counts()
+    batch, draws = _tokenizer_draws(tcfg, TRAIN_BATCH, gen)
+    state, logs = tr.train_step(state, tcfg, tc, batch, **draws)      # the k-means init step
+    B, n_micro = ACCUM_HOLD
+    batch, draws = _tokenizer_draws(tcfg, B, gen)
+    _hold_against_train_step(
+        f"tokenizer accum (batch {B}, {n_micro} microbatches)", state, tcfg, batch, draws,
+        lambda: tr.accum_grads(state, tcfg, batch, n_micro, **dict(draws)),
+        (0, n_micro * per_mb, 0, 0))
+    B, n_micro = ACCUM_TIMED
+    batch = torch.randn((B, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
+    secs, peaks = [], []
+    for step in range(ACCUM_TIMED_STEPS):
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        (state, logs), t = timed(lambda: tr.train_step_accum(state, tcfg, tc, batch, n_micro,
+                                                             rng=gen))
+        c = tuple(a - b for a, b in zip(counts(), before))
+        if c != (0, n_micro * per_mb, 0, 0):
+            raise RuntimeError(f"tokenizer accum step {step + 1}: launch counts {c}")
+        secs.append(t)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        loss, gnorm = float(logs["loss"]), float(logs["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"tokenizer accum step {step + 1}: loss {loss}, grad norm {gnorm}")
+        log(f"  tokenizer accum step {step + 1} (batch {B}, {n_micro} x {B // n_micro}): loss "
+            f"{loss:.6f}, grad norm {gnorm:.6g}, n_reactive {int(logs['vq_n_reactive'])}, "
+            f"{t:.3f} s, peak {peaks[-1]:.2f} GiB, attention launches {c[1]}")
+    if not torch.equal(tok.encoder.quantizer.embed, state.vq_state.embed):
+        raise RuntimeError("tokenizer accum: the EMA codebook was not written back")
+    warm_s = statistics.median(secs[1:])
+    log(f"train tokenizer accum, global batch {B} in {n_micro} microbatches, fp32 (TF32 off): "
+        f"{warm_s:.3f} s a warm step (median of steps 2-{len(secs)}: "
+        f"{', '.join(f'{t:.3f}' for t in secs[1:])}; step 1 {secs[0]:.3f} s), peak memory "
+        f"{max(peaks):.2f} GiB, attention launches {n_micro * per_mb} a step on {card}")
+    accum_total = counts()
+    if do_profile:
+        profile_train_step(lambda: tr.train_step_accum(state, tcfg, tc, batch, n_micro, rng=gen),
+                           warm_s, f"tokenizer accum (batch {B})")
+
+    # path "tokenizer data-parallel, one rank"
+    reset_counts()
+    B = TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as d:
+        if not pdist.init(backend="nccl", init_method=f"file://{os.path.join(d, 'store')}",
+                          rank=0, world_size=1):
+            raise RuntimeError("tokenizer data-parallel: no process group formed")
+        try:
+            log(f"  process group: {torch.distributed.get_backend()}, world "
+                f"{torch.distributed.get_world_size()}")
+            batch, draws = _tokenizer_draws(tcfg, B, gen)
+            _hold_against_train_step(
+                f"tokenizer data-parallel (batch {B}, one rank)", state, tcfg, batch, draws,
+                lambda: tr.accum_grads(state, tcfg, pdist.local_rows(batch), 1,
+                                       group=torch.distributed.group.WORLD, **dict(draws)),
+                (0, per_mb, 0, 0))
+            secs, peaks = [], []
+            for step in range(2):
+                before = counts()
+                torch.cuda.reset_peak_memory_stats()
+                (state, logs), t = timed(lambda: tr.dp_train_step(
+                    state, tcfg, tc, pdist.local_rows(batch), rng=gen))
+                c = tuple(a - b for a, b in zip(counts(), before))
+                if c != (0, per_mb, 0, 0):
+                    raise RuntimeError(f"dp_train_step {step + 1}: launch counts {c}")
+                secs.append(t)
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                if not math.isfinite(float(logs["loss"])):
+                    raise RuntimeError(f"dp_train_step {step + 1}: loss {float(logs['loss'])}")
+            log(f"train tokenizer data-parallel, one rank, batch {B}, fp32 (TF32 off): "
+                f"{secs[-1]:.3f} s the second step (first {secs[0]:.3f} s), peak memory "
+                f"{max(peaks):.2f} GiB on {card}")
+            dp_total = counts()
+            if do_profile:
+                profile_train_step(lambda: tr.dp_train_step(
+                    state, tcfg, tc, pdist.local_rows(batch), rng=gen), secs[-1],
+                    "tokenizer data-parallel (one rank)")
+        finally:
+            torch.distributed.destroy_process_group()
+    state.release()
+    del tok, state
+    release()
+    return accum_total, dp_total
+
+
+VAE_BATCH = 8
+VAE_SIZE = 256
+VAE_STEPS = 5
+VAE_LR = 1e-5
+
+
+def vae_train_path(card, do_profile):
+    """The SD3 VAE's trainer at its own widths (ch 128, ch_mult (1, 2, 4, 4),
+    two res blocks, z 16) at 256 px, batch 8, bf16: VAE_STEPS steps on one
+    seeded batch of smooth images and one reparametrisation draw, every loss
+    finite and the last below the first; then the evaluation's PSNR and
+    SSIM. No kernel is on this path
+    (the 3-channel conv kernel has no backward; JAX's trainer has none)."""
+    import statistics
+
+    import torch.nn.functional as F
+
+    from selftoktokenizer_tpu_torch.models.tokenizer import init_weights_
+    from selftoktokenizer_tpu_torch.models.vae import SDVAE, VAEConfig
+    from selftoktokenizer_tpu_torch.train import vae as tv
+
+    dev = "cuda"
+    cfg = VAEConfig()
+    if (cfg.ch, cfg.ch_mult, cfg.num_res_blocks, cfg.z_channels) != (128, (1, 2, 4, 4), 2, 16):
+        raise RuntimeError(f"not the SD3 VAE's widths: {cfg}")
+    size = VAE_SIZE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    with torch.device(dev):
+        vae = SDVAE(cfg)
+    init_weights_(vae, gen, zero_init_std=0.02)
+    tc = tv.VAETrainConfig(lr=VAE_LR, warmup_steps=0, max_steps=1000)
+    state = tv.make_vae_train_state(vae, tc)
+    coarse = torch.rand((VAE_BATCH, 3, 8, 8), generator=gen, device=dev) * 2 - 1
+    images = F.interpolate(coarse, size=(size, size), mode="bilinear",
+                           align_corners=False).permute(0, 2, 3, 1).contiguous()
+    noise = torch.randn((VAE_BATCH, size // 8, size // 8, cfg.z_channels), generator=gen,
+                        device=dev)
+    log(f"  VAE {sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M parameters, images "
+        f"{tuple(images.shape)}, lr {tc.lr}")
+    reset_counts()
+    losses, secs, peaks = [], [], []
+    for step in range(VAE_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (state, logs), t = timed(lambda: tv.vae_train_step(state, cfg, tc, images, noise=noise))
+        losses.append(float(logs["loss"]))
+        secs.append(t)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  VAE train step {step + 1}: loss {losses[-1]:.6f} (l1 {float(logs['l1']):.5f}, "
+            f"mse {float(logs['mse']):.5f}, kl {float(logs['kl']):.4g}), grad norm "
+            f"{float(logs['grad_norm']):.5g}, {t:.3f} s, peak {peaks[-1]:.2f} GiB")
+        if not math.isfinite(losses[-1]):
+            raise RuntimeError(f"VAE train step {step + 1}: loss {losses[-1]}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"VAE train: the loss did not fall over {VAE_STEPS} steps: {losses}")
+    (p, s_), t_eval = timed(lambda: tv.vae_eval_psnr(vae, cfg, images))
+    p, s_ = float(p), float(s_)
+    if not (math.isfinite(p) and -1.0 <= s_ <= 1.0):
+        raise RuntimeError(f"VAE eval: PSNR {p}, SSIM {s_}")
+    c = counts()
+    warm_s = statistics.median(secs[1:])
+    log(f"train VAE (SD3 widths), batch {VAE_BATCH}, {size} px, bf16: {warm_s:.3f} s a warm step "
+        f"(median of steps 2-{len(secs)}; step 1 {secs[0]:.3f} s), peak memory {max(peaks):.2f} "
+        f"GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f}; eval PSNR {p:.3f} dB, SSIM {s_:.4f} "
+        f"({t_eval:.3f} s) on {card}")
+    if do_profile:
+        profile_train_step(lambda: tv.vae_train_step(state, cfg, tc, images, noise=noise), warm_s,
+                           "VAE train")
+    del vae, state, images
+    release()
+    return c
+
+
 def train_phase(card, do_profile):
     """Training at the flagship widths, fp32 with TF32 off (the global flags
-    come back afterwards)."""
+    come back afterwards), and the VAE's trainer in bf16."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         tok_counts, enc_sd, vq_state = tokenizer_train_path(card, do_profile)
         rend_counts = renderer_train_path(card, do_profile, enc_sd, vq_state)
+        del enc_sd, vq_state
+        accum_counts, dp_counts = tokenizer_accum_and_dp_paths(card, do_profile)
+        vae_counts = vae_train_path(card, do_profile)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
-    return {"tokenizer train": tok_counts, "renderer train": rend_counts}
+    return {"tokenizer train": tok_counts, "renderer train": rend_counts,
+            "tokenizer accum": accum_counts, "tokenizer data-parallel, one rank": dp_counts,
+            "VAE train": vae_counts}
 
 
 def main_path_phase(card, do_profile=False):

@@ -209,10 +209,28 @@ def resolution_shift(latent_h, latent_w):
     return 1.0 if (latent_h * latent_w / 4096.0) < 0.5 else 1.878
 
 
+def loss_draws(cfg: TokenizerConfig, shape, device, rng=None, t=None, noise=None,
+               drop_ids=None, dtype=torch.float32):
+    """The loss's draws for a batch of ``shape``: t [B] (uniform, before the
+    shift), noise (normal, of ``shape``) and drop_ids [B] (None without CFG
+    drop); those given, the rest drawn from rng in this order."""
+    B = shape[0]
+    drop_p = cfg.decoder.class_dropout_prob
+    if rng is None and (t is None or noise is None or (drop_ids is None and drop_p > 0)):
+        raise ValueError("pass rng (a torch.Generator) or t, noise and drop_ids")
+    if t is None:
+        t = torch.rand((B,), generator=rng, device=device)
+    if noise is None:
+        noise = torch.randn(shape, generator=rng, device=device, dtype=dtype)
+    if drop_ids is None and drop_p > 0:
+        drop_ids = torch.rand((B,), generator=rng, device=device) < drop_p
+    return t.to(device), noise.to(device), None if drop_ids is None else drop_ids.to(device)
+
+
 def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_state=None,
                    full_tokens=False, train_quantizer=True, ema_encoder=None, L2_lr=0.0,
                    t=None, noise=None, drop_ids=None, gumbel_noise=None, kmeans_idx=None,
-                   react_uniforms=None, warm_ids=None):
+                   react_uniforms=None, warm_ids=None, vq_injected=None):
     """Training forward: sample t, map it to a token depth, encode and
     quantize, flow-matching loss with the CFG condition drop.
 
@@ -220,23 +238,16 @@ def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_st
     passed in: t [B] (uniform, before the shift), noise (x-shaped normal),
     drop_ids [B] bool, and the quantizer's (``vq.vq_train_apply``).
     ema_encoder: a QformerEncoder holding an EMA copy of the encoder, for
-    the L2 anchor weighted by L2_lr. Returns (loss, aux) with aux['vq_state']
-    the new VQ state, aux['log_dict'] and aux['ids']."""
+    the L2 anchor weighted by L2_lr. vq_injected: the accumulated step's
+    frozen global quantities ({"ids", "embed_used", "g_ap"}, see
+    ``vq.vq_microbatch_surrogate``), which replace the quantizer; the VQ
+    state then does not advance here. Returns (loss, aux) with
+    aux['vq_state'] the new VQ state, aux['log_dict'] and aux['ids']."""
     B, h, w, _ = x.shape
     dev = x.device
     shift = resolution_shift(h, w)
     diti = cfg.make_diti()
-    drop_p = cfg.decoder.class_dropout_prob
-    if rng is None and (t is None or noise is None or (drop_ids is None and drop_p > 0)):
-        raise ValueError("tokenizer_loss: pass rng (a torch.Generator) or t, noise and drop_ids")
-    if t is None:
-        t = torch.rand((B,), generator=rng, device=dev)
-    if noise is None:
-        noise = torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
-    if drop_ids is None and drop_p > 0:
-        drop_ids = torch.rand((B,), generator=rng, device=dev) < drop_p
-    t, noise = t.to(dev), noise.to(dev)
-    drop_ids = None if drop_ids is None else drop_ids.to(dev)
+    t, noise, drop_ids = loss_draws(cfg, x.shape, dev, rng, t, noise, drop_ids, x.dtype)
 
     scale = 1000.0 if cfg.stages is not None else 1.0
     if full_tokens:
@@ -247,7 +258,11 @@ def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_st
 
     enc = tok.encoder
     outs, _ = pre_vq_outs(enc, cfg, x)
-    if train_quantizer and vq_state is not None:
+    if vq_injected is not None:
+        outs_q, quan_loss, vq_logs = vq_mod.vq_microbatch_surrogate(
+            enc.quantizer, outs, vq_injected, cfg.quantizer)
+        ids, new_vq_state = vq_injected["ids"], vq_state
+    elif train_quantizer and vq_state is not None:
         outs_q, ids, quan_loss, new_vq_state, vq_logs = vq_mod.vq_train_apply(
             enc.quantizer, vq_state, outs, cfg.quantizer, rng=rng, gumbel_noise=gumbel_noise,
             kmeans_idx=kmeans_idx, react_uniforms=react_uniforms, warm_ids=warm_ids)

@@ -15,6 +15,13 @@ argmax kernel is not on this path. Every random draw of the reference
 (k-means' first indices, dead-code candidates, Gumbel noise, the warm-up's
 ids) can be passed in explicitly, so a test can feed both sides one draw;
 otherwise it comes from the ``torch.Generator`` given as ``rng``.
+
+Accumulation over microbatches (and data parallelism, which places the
+microbatches on ranks) splits the training step in two halves:
+``vq_train_apply(return_extras=True)`` runs the statistics once over the
+global batch and returns the codebook it quantized against and
+d(diversity)/d(ap_k); ``vq_microbatch_surrogate`` then gives each
+microbatch its exact share of the global loss's gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch import nn
 from selftoktokenizer_tpu_torch.ops import routing
 from selftoktokenizer_tpu_torch.ops import vq_kernels as vk
 from selftoktokenizer_tpu_torch.ops.linear import linear
+from selftoktokenizer_tpu_torch.ops.precision import fp32_exact
 
 
 def l2norm(t, eps=1e-12):
@@ -291,7 +299,7 @@ def inverse_cdf(weights, uniforms):
 
 def vq_train_apply(p: VectorQuantize, state: VQState, x, cfg, rng=None,
                    gumbel_noise=None, kmeans_idx=None, react_uniforms=None,
-                   warm_ids=None):
+                   warm_ids=None, return_extras=False):
     """Training forward and EMA codebook update.
 
     cfg: the quantizer_config mapping (decay, w_commit, w_diversity, reg,
@@ -312,14 +320,23 @@ def vq_train_apply(p: VectorQuantize, state: VQState, x, cfg, rng=None,
     ``continuous``: for the first ``continuous_steps`` calls the quantizer
     is bypassed (projected features out, uniform random ids, no loss, only
     ``count`` and ``steps`` advance); k-means fires on the first quantized
-    step."""
+    step.
+
+    return_extras: also return a sixth element {"embed_used": the codebook
+    the forward quantized against (the k-means codebook on the init step),
+    "g_ap": d(diversity)/d(ap_k) [K, C] at this batch's ap_k}, the frozen
+    quantities of ``vq_microbatch_surrogate``. Refused (ValueError) while
+    the continuous warm-up bypasses the quantizer."""
     B, K, _ = x.shape
     C = p.embed.shape[0]
     z = l2norm(project_in(p, x).float())
     flat = z.reshape(1, B * K, -1)
     if not cfg.get("continuous", False) or int(state.steps) >= int(cfg.get("continuous_steps", 2000)):
         return _vq_quantize_body(p, state, z, flat, x, cfg, rng, gumbel_noise, kmeans_idx,
-                                 react_uniforms)
+                                 react_uniforms, return_extras)
+    if return_extras:
+        raise ValueError("return_extras: the continuous warm-up is active and quantizes "
+                         "nothing (accumulation needs continuous=False or a finished warm-up)")
     if warm_ids is None:
         if rng is None:
             raise ValueError("continuous warmup requires an rng or warm_ids")
@@ -341,7 +358,7 @@ def vq_train_apply(p: VectorQuantize, state: VQState, x, cfg, rng=None,
 
 
 def _vq_quantize_body(p, state: VQState, z, flat, x, cfg, rng, gumbel_noise, kmeans_idx,
-                      react_uniforms):
+                      react_uniforms, return_extras=False):
     """The quantized (non-warm-up) training forward; see ``vq_train_apply``."""
     decay = cfg.get("decay", 0.99)
     B, K, _ = x.shape
@@ -442,4 +459,56 @@ def _vq_quantize_body(p, state: VQState, z, flat, x, cfg, rng, gumbel_noise, kme
         "n_reactive": n_reactive,
         "cosine_sim": torch.mean(torch.sum(quantize * z.detach(), dim=-1)),
     }
-    return quant_out, ids.reshape(B, K).to(torch.int32), loss, new_state, log_dict
+    ids = ids.reshape(B, K).to(torch.int32)
+    if return_extras:
+        with torch.enable_grad():
+            a = ap_k.detach().requires_grad_()
+            g_ap, = torch.autograd.grad(_diversity_from_apk(a, new_tpc, cfg)[0], a)
+        return quant_out, ids, loss, new_state, log_dict, {"embed_used": embed, "g_ap": g_ap}
+    return quant_out, ids, loss, new_state, log_dict
+
+
+class _ExactScores(torch.autograd.Function):
+    """z @ embed^T with TF32 off in the forward and in the backward (the
+    reference's HIGHEST precision); embed gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, z, embed):
+        ctx.save_for_backward(embed)
+        with fp32_exact():
+            return torch.matmul(z, embed.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        embed, = ctx.saved_tensors
+        with fp32_exact():
+            return torch.matmul(g, embed), None
+
+
+def vq_microbatch_surrogate(p: VectorQuantize, x, inj, cfg):
+    """One microbatch's training forward against the frozen quantities of
+    the global step (the second half of the accumulated step).
+
+    inj: {"ids": [B_m, K] this microbatch's rows of the global ids,
+    "embed_used": [C, D] the codebook the global pass quantized against,
+    "g_ap": [K, C] d(diversity)/d(ap_k) at the global ap_k}.
+
+    The commitment loss is an element mean, so equal microbatches average
+    to the global one; the diversity term is linear in each microbatch's
+    batch-mean softmax near the global point, so sum(g_ap * ap_k_mb) gives
+    the global gradient when the microbatches' gradients are averaged. The
+    scores are exact fp32 (TF32 off inside). Returns (quant_out, loss,
+    log_dict)."""
+    z = l2norm(project_in(p, x).float())
+    embed = inj["embed_used"].detach().float()
+    quantize = embed[inj["ids"].long()]                           # [B, K, D]
+    commit = torch.sum((quantize - z) ** 2) / z.numel()
+    scaled = _ExactScores.apply(z, embed) * 10.0                  # [B, K, C]
+    lse = torch.logsumexp(scaled, dim=-1)
+    pr = torch.exp(scaled - lse[..., None])
+    surr = torch.sum(inj["g_ap"].detach() * torch.mean(pr, dim=0))
+    loss = cfg.get("w_commit", 1.0) * commit + surr
+    quant_out = project_out(p, z + (quantize - z).detach())       # straight-through
+    log_dict = {"commit_loss": commit.detach(),
+                "cosine_sim": torch.mean(torch.sum(quantize * z.detach(), dim=-1))}
+    return quant_out, loss, log_dict

@@ -45,6 +45,7 @@ from selftoktokenizer_tpu_torch.models.vae import (
     SD3LatentFormat, SDVAE, VAEConfig, vae_decode, vae_encode_mode, vae_from_state_dict)
 from selftoktokenizer_tpu_torch.ops import routing
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm
+from selftoktokenizer_tpu_torch.ops.precision import fp32_exact
 from selftoktokenizer_tpu_torch.ops.q8_matmul import quantize_model_
 
 
@@ -186,7 +187,7 @@ class SelftokPipeline:
         with routing.kernel_route(kernels):
             x0 = self._images_to_latents(self._to_device(images))
             serving = self.encode_precision == "default"
-            with _fp32_exact(_EXACT[self.encode_precision]):
+            with fp32_exact(_EXACT[self.encode_precision]):
                 return encoder_margins(
                     self.encoder, self.tcfg.encoder, x0,
                     trunk_dtype=torch.bfloat16 if serving else None,
@@ -257,7 +258,7 @@ class SelftokPipeline:
         # fast VQ scores. 'highest' keeps fp32 activations and plain fp32
         # attention, with TF32 off; 'high' the same with TF32 on.
         serving = prec == "default"
-        with _fp32_exact(_EXACT[prec]):
+        with fp32_exact(_EXACT[prec]):
             return encoder_apply(
                 self.encoder, self.tcfg.encoder, x0,
                 trunk_dtype=torch.bfloat16 if serving else None,
@@ -362,26 +363,3 @@ def _check_precision(prec):
     if prec not in _EXACT:
         raise ValueError(
             f"encode_precision must be 'highest', 'high' or 'default', got {prec!r}")
-
-
-class _fp32_exact:
-    """While active: TF32 off (enabled=True) or on (enabled=False) for CUDA
-    matmuls and for cuDNN convolutions; enabled=None leaves both as they
-    are. The previous settings come back on exit."""
-
-    def __init__(self, enabled=True):
-        self.enabled = enabled
-
-    def __enter__(self):
-        if self.enabled is not None:
-            self._prev = (torch.backends.cuda.matmul.allow_tf32,
-                          torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = not self.enabled
-            torch.backends.cudnn.allow_tf32 = not self.enabled
-        return self
-
-    def __exit__(self, *exc):
-        if self.enabled is not None:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = self._prev
-        return False

@@ -14,6 +14,14 @@
 A step mutates the state it is given (modules, optimizer) and returns it
 with the step's log dict. Randomness comes from the ``torch.Generator``
 passed as ``rng``, or from explicit draws (see ``models.tokenizer``).
+
+A global batch larger than one step holds: ``train_step_accum`` runs the
+VQ statistics once over the global batch without gradient (phase A), then
+accumulates the gradients over microbatches against the frozen global
+quantities (phase B, ``models.vq.vq_microbatch_surrogate``), so its step
+equals ``train_step`` on the whole batch while the activations stay at one
+microbatch. ``dp_train_step`` is the same step with the microbatches placed
+on the ranks of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from selftoktokenizer_tpu_torch.core.checkpoint import (
     ema_update, restore_checkpoint, save_checkpoint)
@@ -30,7 +39,9 @@ from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.models.encoder import QformerEncoder
 from selftoktokenizer_tpu_torch.models.mmdit import MMDiT
 from selftoktokenizer_tpu_torch.models.tokenizer import (
-    ImageTokenizer, TokenizerConfig, renderer_train_loss, tokenizer_loss)
+    ImageTokenizer, TokenizerConfig, loss_draws, pre_vq_outs, renderer_train_loss,
+    tokenizer_loss)
+from selftoktokenizer_tpu_torch.parallel import distributed as pdist
 
 
 @dataclasses.dataclass
@@ -94,30 +105,42 @@ def global_norm(tensors):
 
 
 @torch.no_grad()
+def clip_by_global_norm_(grads, max_norm):
+    """Scale the gradients in place by max/norm where norm >= max (0: no
+    clipping), norm being one global norm over all of them. Returns the
+    norm before clipping."""
+    norm = global_norm(grads)
+    if max_norm > 0 and float(norm) >= max_norm:
+        for g in grads:
+            g.div_(norm.to(g.dtype)).mul_(max_norm)
+    return norm
+
+
+@torch.no_grad()
 def apply_update(opt, params, tc: TrainConfig, step):
     """One optimizer step from the gradients in ``.grad``: clip by one
-    global norm over all ``params`` (g * max/norm where norm >= max), set
-    each group's learning rate for ``step``, step. Returns the norm before
-    clipping."""
-    grads = [p.grad for p in params]
-    norm = global_norm(grads)
-    if tc.grad_norm > 0 and float(norm) >= tc.grad_norm:
-        for g in grads:
-            g.div_(norm.to(g.dtype)).mul_(tc.grad_norm)
+    global norm over all ``params``, set each group's learning rate for
+    ``step``, step. Returns the norm before clipping."""
+    norm = clip_by_global_norm_([p.grad for p in params], tc.grad_norm)
     for group in opt.param_groups:
         group["lr"] = lr_at(group["base_lr"], tc, step)
     opt.step()
     return norm
 
 
-def _backward(module, loss):
+def backward_into_grads(module, loss):
     """Gradients of loss into ``.grad`` of the trainable parameters; a
     parameter the loss does not reach gets zeros, as a gradient tree
-    would, so weight decay treats every parameter alike."""
+    would, so weight decay treats every parameter alike. Returns those
+    parameters."""
     params = [p for _, p in _trainable(module)]
     for p in params:
         p.grad = None
     loss.backward()
+    return _fill_zeros(params)
+
+
+def _fill_zeros(params):
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -167,7 +190,7 @@ def tokenizer_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, rn
     state.model.train()
     loss, aux = tokenizer_loss(state.model, tcfg, batch, rng=rng, vq_state=state.vq_state,
                                **draws)
-    return loss, aux, _backward(state.model, loss)
+    return loss, aux, backward_into_grads(state.model, loss)
 
 
 def train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainConfig, batch,
@@ -177,18 +200,172 @@ def train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainConfi
     clipping (``grad_norm``) and the step's token ids (``ids``). The
     gradients stay in ``.grad`` until the next step."""
     _, aux, params = tokenizer_grads(state, tcfg, batch, rng=rng, **draws)
-    norm = apply_update(state.opt, params, tc, state.step)
-    # the EMA-updated codebook is authoritative: the encode path reads it
-    state.vq_state = aux["vq_state"]
+    logs = dict(aux["log_dict"])
+    logs["ids"] = aux["ids"]
+    return _finish_step(state, tc, params, aux["vq_state"], logs)
+
+
+def _finish_step(state: TokenizerTrainState, tc: TrainConfig, params, vq_state, logs):
+    """The update from the gradients in ``.grad``: the optimizer step (one
+    global clip), the new VQ state with its codebook written into the
+    quantizer (the encode path reads it there), the EMA copy."""
+    logs["grad_norm"] = apply_update(state.opt, params, tc, state.step)
+    state.vq_state = vq_state
     with torch.no_grad():
-        state.model.encoder.quantizer._codebook.embed[0].copy_(state.vq_state.embed)
+        state.model.encoder.quantizer._codebook.embed[0].copy_(vq_state.embed)
     if state.ema_params is not None:
         ema_update(state.ema_params, dict(state.model.named_parameters()), tc.ema_decay)
     state.step += 1
-    logs = dict(aux["log_dict"])
-    logs["grad_norm"] = norm
-    logs["ids"] = aux["ids"]
     return state, logs
+
+
+def _phase_a(state: TokenizerTrainState, tcfg: TokenizerConfig, outs, rng, vq_draws):
+    """The quantizer's step on the global batch's pre-VQ outputs, without
+    gradient: (ids, phase-A loss, new VQ state, VQ logs, extras)."""
+    with torch.no_grad():
+        _, ids, quan_loss, vq_state, vq_logs, extras = vq_mod.vq_train_apply(
+            state.model.encoder.quantizer, state.vq_state, outs, tcfg.quantizer, rng=rng,
+            return_extras=True, **vq_draws)
+    return ids, quan_loss, vq_state, vq_logs, extras
+
+
+def _surrogate_backward(tok, tcfg: TokenizerConfig, batch, rows, ids, extras, t, noise, drop):
+    """Phase B on the rows ``rows`` of the global batch: the loss against
+    the frozen global quantities, backward into ``.grad`` (accumulating).
+    Returns the rows' dm_mse."""
+    inj = {"ids": ids[rows], "embed_used": extras["embed_used"], "g_ap": extras["g_ap"]}
+    loss, aux = tokenizer_loss(tok, tcfg, batch, t=t[rows], noise=noise[rows],
+                               drop_ids=None if drop is None else drop[rows], vq_injected=inj)
+    loss.backward()
+    return aux["log_dict"]["dm_mse"]
+
+
+def _accum_logs(dm_mse, quan_loss, vq_logs, ids):
+    return {"loss": dm_mse + quan_loss.detach(), "dm_mse": dm_mse,
+            **{f"vq_{k}": v for k, v in vq_logs.items()}, "ids": ids}
+
+
+def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micro, group=None,
+                rng=None, **draws):
+    """The accumulated step's two phases without the update: the averaged
+    gradients of the global batch into ``.grad``. Returns (logs, new VQ
+    state, params).
+
+    batch: this process's rows [B_l,h,w,C], B_l a multiple of n_micro. With
+    ``group`` None it is the whole global batch and nothing is communicated;
+    with a ``torch.distributed`` group it is this rank's rows, the same
+    count on every rank, in rank order of the global batch (B_g = B_l *
+    world): the pre-VQ outputs are gathered, rank 0's phase A is broadcast
+    (the GPU's scatter-adds are not bit-deterministic, and the ranks'
+    codebooks would otherwise drift apart), and the gradients are averaged
+    by all_reduce. draws: as ``tokenizer_grads``'s, for the global batch (t,
+    noise, drop_ids; kmeans_idx, react_uniforms, gumbel_noise) and the same
+    on every rank, the missing ones drawn from rng (seeded alike on every
+    rank) as ``tokenizer_loss`` draws them, so a generator seeded alike
+    gives ``train_step`` the same draws; microbatch i of rank r takes global
+    rows r*B_l + [i*B_m, (i+1)*B_m)."""
+    B_l = batch.shape[0]
+    if n_micro < 1 or B_l % n_micro:
+        raise ValueError(f"accum_grads: batch {B_l} is not a multiple of n_micro={n_micro}")
+    r, w = (0, 1) if group is None else pdist.rank_and_world(group)
+    tok = state.model
+    tok.train()
+    t, noise, drop = loss_draws(tcfg, (B_l * w,) + tuple(batch.shape[1:]), batch.device, rng,
+                                draws.pop("t", None), draws.pop("noise", None),
+                                draws.pop("drop_ids", None), batch.dtype)
+    with torch.no_grad():
+        outs, _ = pre_vq_outs(tok.encoder, tcfg, batch)
+    if group is not None:
+        outs = pdist.all_gather_rows(outs, group)
+    ids, quan_loss, vq_state, vq_logs, extras = _phase_a(state, tcfg, outs, rng, draws)
+    del outs
+    if group is not None:
+        # embed_used may share memory with the input state's codebook: copy
+        # it before the broadcast writes into it
+        extras = {"embed_used": extras["embed_used"].clone(), "g_ap": extras["g_ap"]}
+        keys = sorted(vq_logs)
+        scalars = torch.stack([quan_loss.float()] + [vq_logs[k].float() for k in keys])
+        pdist.broadcast_([ids, extras["embed_used"], extras["g_ap"], scalars]
+                         + list(vq_state.asdict().values()), group=group)
+        quan_loss = scalars[0]
+        vq_logs = {k: v.to(vq_logs[k].dtype) for k, v in zip(keys, scalars[1:].unbind(0))}
+
+    params = [p for _, p in _trainable(tok)]
+    for p in params:
+        p.grad = None
+    B_m = B_l // n_micro
+    dm = []
+    for i in range(n_micro):
+        lo = r * B_l + i * B_m
+        dm.append(_surrogate_backward(tok, tcfg, batch[i * B_m:(i + 1) * B_m],
+                                      slice(lo, lo + B_m), ids, extras, t, noise, drop))
+    dm = torch.stack(dm).detach().mean()
+    _fill_zeros(params)
+    if group is None:
+        with torch.no_grad():
+            for p in params:
+                p.grad.div_(n_micro)
+    else:
+        all_reduce_grads_(params, group, n_micro * w)
+        dm = dm.float().reshape(1).to(pdist.comm_device(group))
+        dist.all_reduce(dm, group=group)
+        dm = (dm[0] / w).to(quan_loss.device)
+    return _accum_logs(dm, quan_loss, vq_logs, ids), vq_state, params
+
+
+def train_step_accum(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainConfig, batch,
+                     n_micro, rng=None, **draws):
+    """One optimizer step over a global batch of n_micro microbatches, on
+    one device: equal to ``train_step`` on the whole batch (the VQ
+    statistics, k-means, dead-code thresholds and EMA over the global batch;
+    the gradient averaged over the microbatches), with the activations of
+    one microbatch. Returns (state, logs) as ``train_step``; logs['loss'] is
+    the microbatches' mean dm_mse plus the global quantizer loss."""
+    logs, vq_state, params = accum_grads(state, tcfg, batch, n_micro, rng=rng, **draws)
+    return _finish_step(state, tc, params, vq_state, logs)
+
+
+# elements of one all_reduce of the gradients: 256 MiB of fp32
+GRAD_BUCKET = 1 << 26
+
+
+def all_reduce_grads_(params, group, divisor):
+    """Sum ``.grad`` over the ranks of ``group`` in place and divide by
+    ``divisor``: flattened buckets of GRAD_BUCKET elements, one all_reduce
+    each."""
+    grads = [p.grad for p in params]
+    i = 0
+    while i < len(grads):
+        j, n = i, 0
+        while j < len(grads) and (j == i or n + grads[j].numel() <= GRAD_BUCKET):
+            n += grads[j].numel()
+            j += 1
+        flat = torch.cat([g.reshape(-1) for g in grads[i:j]])
+        dist.all_reduce(flat, group=group)
+        flat.div_(divisor)
+        o = 0
+        for g in grads[i:j]:
+            g.copy_(flat[o:o + g.numel()].view_as(g))
+            o += g.numel()
+        i = j
+
+
+def dp_train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainConfig,
+                  local_batch, n_micro=1, group=None, rng=None, **global_draws):
+    """One data-parallel optimizer step: ``train_step_accum`` with the
+    global batch's microbatches placed on the ranks of ``group`` (the
+    default group when None), n_micro of them on each rank. The pre-VQ
+    outputs are gathered, phase A runs on the global batch (rank 0's result
+    broadcast), each rank backpropagates its rows, the gradients are
+    averaged by all_reduce over flattened buckets, and every rank clips and
+    steps alike. Returns (state, logs) as ``train_step``."""
+    if not dist.is_initialized():
+        raise RuntimeError("dp_train_step needs an initialized process group "
+                           "(parallel.distributed.init); train_step_accum is the one-device step")
+    logs, vq_state, params = accum_grads(state, tcfg, local_batch, n_micro,
+                                         group=dist.group.WORLD if group is None else group,
+                                         rng=rng, **global_draws)
+    return _finish_step(state, tc, params, vq_state, logs)
 
 
 def save_train_state(path, state: TokenizerTrainState):
@@ -247,7 +424,7 @@ def renderer_grads(state: RendererTrainState, tcfg: TokenizerConfig, encoder: Qf
     gradients into ``.grad``. Returns (loss, log_dict, params)."""
     state.model.train()
     loss, logs = renderer_train_loss(state.model, encoder, tcfg, batch)
-    return loss, logs, _backward(state.model, loss)
+    return loss, logs, backward_into_grads(state.model, loss)
 
 
 def renderer_train_step(state: RendererTrainState, tcfg: TokenizerConfig, tc: TrainConfig,

@@ -49,7 +49,10 @@ def test_port_has_every_module_of_the_slice():
             "configs/flagship-256.yml",
             # the int8 decode, the renderer and the last TPU kernel
             "ops/q8_matmul.py", "ops/conv3ch.py", "csrc/q8_matmul.cu", "csrc/conv3ch.cu",
-            "configs/flagship-renderer-256.yml"]
+            "configs/flagship-renderer-256.yml",
+            # training at a global batch larger than one step, and the VAE trainer
+            "ops/precision.py", "parallel/distributed.py", "parallel/mesh.py",
+            "train/trainer.py", "train/vae.py", "utils/metrics.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing, missing
 

@@ -199,3 +199,74 @@ def jax_render(jpipe, ids):
     finally:
         jpipe._latents_to_images = keep
     return to_np(lat), to_np(jpipe.decode_latents(lat))
+
+
+def jax_step_draws(key, tcfg, shape):
+    """The random draws of the JAX package's ``train_step`` (through
+    ``tokenizer_loss``) and ``train_step_accum`` from ``key`` for a global
+    batch of ``shape``, as port inputs: both split the key into (t, noise,
+    drop, react); the quantizer splits react into (choice, k-means). tcfg:
+    the port's TokenizerConfig."""
+    import jax
+    import jax.numpy as jnp
+
+    r_t, r_noise, r_drop, r_react = jax.random.split(key, 4)
+    B, C, n = shape[0], tcfg.encoder.codebook_size, shape[0] * tcfg.k
+    d = {"t": jax.random.uniform(r_t, (B,)),
+         "noise": jax.random.normal(r_noise, shape, jnp.float32)}
+    drop_p = tcfg.decoder.class_dropout_prob
+    if drop_p > 0:
+        d["drop_ids"] = jax.random.uniform(r_drop, (B,)) < drop_p
+    r_choice, r_km = jax.random.split(r_react)
+    d["kmeans_idx"] = (jax.random.permutation(r_km, n)[:C] if n >= C
+                       else jax.random.randint(r_km, (C,), 0, n))
+    d["react_uniforms"] = jax.random.uniform(r_choice, (C,))
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+def run_ranks(worker_src, tmp_path, world=2, timeout=120, args=()):
+    """Run the Python source ``worker_src`` in ``world`` processes, one a
+    rank, with argv [rank, world, init_method, *args]; init_method is a
+    FileStore under tmp_path (no port to race for between test workers).
+    Each rank's output goes to a file (a full pipe would stall a rank
+    inside a collective). Waits at most ``timeout`` seconds in all, then
+    kills every rank. Fails unless every rank exits 0; returns their
+    outputs."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank_worker.py"
+    script.write_text(worker_src)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    init_method = f"file://{tmp_path / 'filestore'}"
+    logs = [tmp_path / f"rank{r}.log" for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(script), str(r), str(world), init_method,
+                     *map(str, args)], cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        timed_out = [p for p in procs if p.poll() is None]
+        for p in timed_out:
+            p.kill()
+        for p in procs:
+            p.wait()
+    outs = [open(f).read() for f in logs]
+    report = "\n".join(f"--- rank {r} (exit {p.returncode}):\n{o}"
+                       for r, (p, o) in enumerate(zip(procs, outs)))
+    assert not timed_out, f"ranks killed after {timeout} s\n{report}"
+    assert all(p.returncode == 0 for p in procs), report
+    return outs
