@@ -10,8 +10,13 @@ the accumulated tokenizer step (``train_step_accum``) held against
 ``train_step`` at batch 4 and timed at a global batch of 16 that no single
 step holds; the data-parallel step (``dp_train_step``) in a one-rank NCCL
 group, held against ``train_step``; and the SD3 VAE's trainer at its own
-widths (256 px, batch 8, bf16). Each path runs with every launch count set
-to 0 just before it and read just after.
+widths (256 px, batch 8, bf16). Before training, phase "zoo" drives the rest
+of the model zoo at full width: seven named encoders at batch 8 (each
+interaction mode, K = 24 and K = 1024), the variant decoder (qk-norm 'ln',
+'pos_t_emb', mean pooling; bf16 and int8) with one sampler step of the
+batched CFG trunk, a decoder with register tokens at cfg 2.0 and
+RenderDiT_XL, each against the forced plain versions. Each path runs with
+every launch count set to 0 just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -22,11 +27,12 @@ It exits non-zero when no GPU is available or when any phase fails. The
 last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
-``--only kernels`` stops after the kernel phase, ``--only train`` runs the
-train phase alone (no kernel line, no final line); ``--ptxas`` prints the
+``--only kernels`` stops after the kernel phase, ``--only train`` and
+``--only zoo`` run that phase alone (no kernel line, no final line); ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
-torch.profiler pass over one warm bf16 decode, one warm int8 decode and one
-extra tokenizer and renderer train step;
+torch.profiler pass over one warm bf16 decode, one warm int8 decode, one
+extra tokenizer and renderer train step and the zoo's two forms of a CFG
+sampler step;
 ``--q8-sweep`` times every ``q8_matmul`` plan at the main path's shapes.
 """
 
@@ -149,29 +155,45 @@ def time_ms(fn, warmup=3, reps=10, rounds=5, hold=True):
 
 # --------------------------------------------------------------- kernels ---
 
-def attn_bound(B, H, Lq, Lk, D, dtype, masked):
-    flops = 4.0 * B * H * Lq * Lk * D
+def active_keys(mask, B, Lk):
+    """The keys the function needs, summed over the batch rows: a row's
+    active keys, or all Lk for a row with none (its output is the mean of
+    every value)."""
+    if mask is None:
+        return B * Lk
+    n = mask.sum(dim=1)
+    return int(torch.where(n > 0, n, Lk).sum())
+
+
+def attn_bound(B, H, Lq, Lk, D, dtype, mask):
+    """Both products over each row's active keys only, against reading q
+    and the active keys' k and v, writing the output, and reading the mask
+    once."""
+    nk = active_keys(mask, B, Lk)
+    flops = 4.0 * H * Lq * D * nk
     item = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (2 * Lq + 2 * Lk) * D * B * H * item + (B * Lk if masked else 0)
+    nbytes = (2 * B * Lq + 2 * nk) * D * H * item + (0 if mask is None else B * Lk)
     t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attn_backward_bound(B, H, Lq, Lk, D, dtype):
+def attn_backward_bound(B, H, Lq, Lk, D, dtype, mask):
     """The backward's five products (the scores again, dV, dP, dQ, dK) in
-    fp32 on the CUDA cores, against reading q, k, v, dO and writing dq, dk,
-    dv once."""
+    fp32 on the CUDA cores over each row's active keys, against reading q,
+    dO and the active keys' k, v, and writing dq, dk, dv once (dk and dv
+    for every key: a masked key's are zeros)."""
+    nk = active_keys(mask, B, Lk)
     item = 2 if dtype == torch.bfloat16 else 4
-    t_ops = 10.0 * B * H * Lq * Lk * D / PEAK_FP32_FLOPS
-    t_bytes = (4 * Lq + 3 * Lk) * D * B * H * item / PEAK_BYTES
+    t_ops = 10.0 * H * Lq * D * nk / PEAK_FP32_FLOPS
+    t_bytes = (3 * B * Lq + 2 * nk + 2 * B * Lk) * D * H * item / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attn_exp_bound(B, H, Lq, Lk):
-    """The exponentials alone: one per score on the special-function units,
-    16 a clock on each of the 132 SMs."""
-    return B * H * Lq * Lk / (132 * 16 * sm_clock_hz()) * 1e3
+def attn_exp_bound(B, H, Lq, Lk, mask):
+    """The exponentials alone: one per score of an active key on the
+    special-function units, 16 a clock on each of the 132 SMs."""
+    return H * Lq * active_keys(mask, B, Lk) / (132 * 16 * sm_clock_hz()) * 1e3
 
 
 def vq_bound(N, C, D=16):
@@ -205,12 +227,28 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
         k = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
         v = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
     mask = None
-    if mask_kind == "prefix":
-        # the decode path's masks: a prefix of the context keys active, all x keys active
-        n_ctx = Lk - 256 if Lk > 256 else Lk // 2
+    pos = torch.arange(Lk, device=dev)[None, :]
+    if mask_kind and mask_kind.startswith("prefix"):
+        # the decode path's masks: a prefix of the context keys active, all x
+        # keys active (256 x keys at 256 px, or the count the kind names)
+        n_x = int(mask_kind[6:] or 256)
+        n_ctx = Lk - n_x if Lk > n_x else Lk // 2
         active = torch.randint(1, n_ctx + 1, (B,), generator=gen, device=dev)
-        pos = torch.arange(Lk, device=dev)[None, :]
         mask = (pos < active[:, None]) | (pos >= n_ctx)
+    elif mask_kind == "uncond_registers":
+        # the register decoder's uncond call: registers and x keys active
+        mask = ((pos < 4) | (pos >= Lk - 256)).expand(B, Lk).contiguous()
+    elif mask_kind == "cfg_batched":
+        # rows [0, B/2) a decode prefix, rows [B/2, B) the x keys only
+        active = torch.randint(1, Lk - 256 + 1, (B,), generator=gen, device=dev)
+        active[B // 2:] = 0
+        mask = (pos < active[:, None]) | (pos >= Lk - 256)
+    elif mask_kind == "renderdit":
+        # RenderDiT's: a prefix of the 512 token keys active, and on odd rows
+        # the last 56 of the 256 mask-token keys masked
+        active = torch.randint(1, Lk - 256 + 1, (B,), generator=gen, device=dev)
+        mask = (pos < active[:, None]) | (pos >= Lk - 256)
+        mask[1::2, Lk - 56:] = False
     elif mask_kind == "random":
         mask = torch.rand((B, Lk), generator=gen, device=dev) > 0.5
         mask[:, 0] = True
@@ -248,14 +286,14 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
         rec["launch"] = {"stages": fa.STAGES[D], "grid": [-(-Lq // fa.BM), B * H],
                          "smem": fa.smem_bytes(D)}
     if timed:
-        bound, by = attn_bound(B, H, Lq, Lk, D, dtype, mask is not None)
+        bound, by = attn_bound(B, H, Lq, Lk, D, dtype, mask)
         am = None if mask is None else mask[:, None, None, :]
         rec.update(
             ms=time_ms(lambda: fa.flash_sdpa_key_mask(q, k, v, mask)),
             host_paced_ms=time_ms(lambda: fa.flash_sdpa_key_mask(q, k, v, mask), hold=False),
             plain_ms=time_ms(lambda: fa.flash_sdpa_key_mask_plain(q, k, v, mask), reps=3, rounds=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
-            bound_ms=bound, bound_by=by, exp_bound_ms=attn_exp_bound(B, H, Lq, Lk))
+            bound_ms=bound, bound_by=by, exp_bound_ms=attn_exp_bound(B, H, Lq, Lk, mask))
         rec["share"] = bound / rec["ms"]
     log(f"  attention {name}: {json.dumps(rec)}")
     return rec
@@ -310,7 +348,7 @@ def attn_grad_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, layout, timed, g
         ql, kl, vl = (t.detach().requires_grad_() for t in (q0, k0, v0))
         out_l = F.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=None if mask is None else mask[:, None, None, :])
-        bound, by = attn_backward_bound(B, H, Lq, Lk, D, dtype)
+        bound, by = attn_backward_bound(B, H, Lq, Lk, D, dtype, mask)
         rec.update(
             backward_ms=time_ms(lambda: fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, do),
                                 reps=3, rounds=3),
@@ -662,6 +700,19 @@ def kernel_phase():
         ("decode_joint_384_bf16_masked", 2, 24, 384, 384, 64, bf, "prefix", True),
         ("decode_joint_512_bf16_masked", 2, 24, 512, 512, 64, bf, "prefix", True),
         ("decode_joint_640_bf16_masked", 2, 24, 640, 640, 64, bf, "prefix", True),
+        # the zoo: the register decoder's uncond call (4 register keys active,
+        # 512 context keys masked, 256 x keys; 772 keys, no multiple of 64),
+        # the batched CFG trunk at 2B (the uncond half's context keys all
+        # masked), RenderDiT at batch 8 (one call a block), the K=1024
+        # encoder's query attention at 'default'
+        ("cfg_inference_registers_bf16", 1, 24, 772, 772, 64, bf, "uncond_registers", True),
+        ("cfg_batched_2b_bf16", 4, 24, 768, 768, 64, bf, "cfg_batched", True),
+        ("renderdit_bf16", 8, 24, 768, 768, 64, bf, "renderdit", True),
+        ("encoder_query_k1024_bf16", 8, 8, 1024, 1280, 64, bf, None, True),
+        # 512 px: the decode joint is 512 context + 1024 x rows; 4608 is the
+        # longest bucket of the JAX package's 512 px notes (4096 x rows)
+        ("decode_joint_512px_bf16_masked", 2, 24, 1536, 1536, 64, bf, "prefix1024", True),
+        ("joint_4608_bf16_masked", 2, 24, 4608, 4608, 64, bf, "prefix4096", True),
         ("ragged_bf16", 2, 3, 200, 333, 64, bf, "random", False),
         # Lq and Lk a multiple of neither tile: the last query tile holds 13
         # rows, the last key tile 1 key
@@ -698,6 +749,9 @@ def kernel_phase():
         # (name, N, C, timed, kind, time once, count re-scores)
         ("flagship_b8", 4096, 32768, True, "random", False, True),
         ("flagship_b32", 16384, 32768, True, "random", False, True),
+        # the zoo at batch 8: Enc-L/8 (K = 24 groups of 16 patches), K = 1024
+        ("vit_enc_l8_b8", 3072, 32768, True, "random", False, True),
+        ("k1024_b8", 8192, 32768, True, "random", False, True),
         ("ragged", 1000, 5001, False, "random", False, False),
         ("norms_0.1_to_10", 4096, 32768, False, "norms", False, True),
         ("near_tie", 4096, 32768, False, "near_tie", False, True),
@@ -876,22 +930,25 @@ def check_decoder_widths(pipe, renderer=False):
         raise RuntimeError(f"not the flagship widths: {widths}")
 
 
-def build_pipeline(cfg_path, decode_dtype):
+def build_pipeline(cfg, decode_dtype, encode_only=False):
+    """cfg: a config file's path or a config (``zoo_config``)."""
     from selftoktokenizer_tpu_torch.core.config import load_config
     from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
+    name = cfg.rsplit("/", 1)[-1] if isinstance(cfg, str) else \
+        f"{cfg.tokenizer.params.enc} + {cfg.tokenizer.params.model}"
     # non-zero adaLN and biases: the reference init zeroes every attention gate,
     # which would hide a wrong attention kernel from every end-to-end check;
     # one seed, so every pipeline of the run holds the same weights
-    pipe = SelftokPipeline(load_config(cfg_path), datasize=256, steps=50,
-                           decode_dtype=decode_dtype, encode_precision="highest", seed=0,
-                           zero_init_std=0.02)
+    pipe = SelftokPipeline(load_config(cfg) if isinstance(cfg, str) else cfg, datasize=256,
+                           steps=50, decode_dtype=decode_dtype, encode_precision="highest",
+                           seed=0, zero_init_std=0.02, encode_only=encode_only)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (pipe.encoder, pipe.model, pipe.vae)
+    n_params = sum(p.numel() for m in (pipe.encoder, pipe.model, pipe.vae) if m is not None
                    for p in list(m.parameters()) + list(m.buffers()))
-    log(f"  pipeline {cfg_path.rsplit('/', 1)[-1]} {decode_dtype} built in "
+    log(f"  pipeline {name} {decode_dtype} built in "
         f"{time.time() - t0:.1f} s: {n_params / 1e9:.2f} B weights, "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak")
     return pipe
@@ -1136,6 +1193,376 @@ def renderer_path(card, ref):
     return total
 
 
+# ------------------------------------------------------------------- zoo ---
+
+# the zoo's encoders at 256 px, batch 8: (label, named encoder, encoder_config
+# overrides, K). Enc-Qformer-Uni-XL/2 cannot run concat (its image width 64
+# and query width 512 cannot share one joint attention, in the JAX package
+# as in the reference), so concat runs on Enc-Qformer-Uni-WXL/2 (256 / 256)
+ZOO_ENCODERS = [
+    ("Bi-XL/2 bidirectional", "Enc-Qformer-Bi-XL/2", {"qformer_mode": "dual"}, 512),
+    ("Uni0-WL/1 zero-init", "Enc-Qformer-Uni0-WL/1", {"qformer_mode": "dual"}, 512),
+    ("Uni-XL/2 attn_mask", "Enc-Qformer-Uni-XL/2", {"qformer_mode": "dual", "attn_mask": True},
+     512),
+    ("Uni-WXL/2 concat", "Enc-Qformer-Uni-WXL/2", {"qformer_mode": "concat"}, 512),
+    ("Uni-XL/2 qformer", "Enc-Qformer-Uni-XL/2", {"qformer_mode": "qformer"}, 512),
+    ("L/8 vit", "Enc-L/8", {}, 24),
+    ("Uni-XL/2 K=1024", "Enc-Qformer-Uni-XL/2", {"qformer_mode": "dual"}, 1024),
+]
+# tokens per DiTi stage at each K: the flagship's at 512, bench.py's at 1024
+K_PER_STAGE = {24: "9,9,3,2,1", 512: "192,184,72,48,16", 1024: "384,368,144,96,32"}
+ZOO_REGISTERS = 4    # 4 + 512 + 256 = 772 keys: no multiple of the 64-key tile
+
+
+def zoo_config(base=None, enc=None, encoder_config=None, k=None, model=None,
+               decoder_config=None):
+    """The flagship config (or ``base``) with the zoo's changes applied."""
+    from selftoktokenizer_tpu_torch.core.config import AttrDict, FLAGSHIP_CONFIG, load_config
+
+    cfg = load_config(base or FLAGSHIP_CONFIG).to_dict()
+    p = cfg["tokenizer"]["params"]
+    if enc is not None:
+        p["enc"] = enc
+    p["encoder_config"].update(encoder_config or {})
+    if k is not None:
+        p["k"] = p["quantizer_config"]["K"] = k
+        p["k_per_stage"] = K_PER_STAGE[k]
+    if model is not None:
+        p["model"] = model
+    p["decoder_config"].update(decoder_config or {})
+    return AttrDict(cfg)
+
+
+def latent_check(name, lat, ref, tol=LATENT_TOL):
+    """lat finite, its largest difference from ref within tol of ref's
+    scale. name says what the two are."""
+    if not torch.isfinite(lat.float()).all():
+        raise RuntimeError(f"{name}: non-finite values")
+    e = (lat.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    log(f"  {name}: max abs diff {e:.4g} ({e / scale:.4g} of the scale {scale:.3g})")
+    if e > tol * scale:
+        raise RuntimeError(f"{name}: differ by {e / scale} of the scale > {tol}")
+    return e / scale
+
+
+def zoo_encoder_path(card, label, cfg, images):
+    """One zoo encoder at batch 8, 'highest' and 'default', each against
+    the forced plain versions by the margin rules of the flagship encode."""
+    pipe = build_pipeline(cfg, torch.bfloat16, encode_only=True)
+    ec = pipe.tcfg.encoder
+    B = images.shape[0]
+    n_tok = ec.K * ((256 // 8 // ec.patch_size) ** 2 if ec.qformer_mode == "vit" else 1)
+    serving = ec.qformer_mode == "dual"        # 'default' takes the bf16 trunk
+    kernel_attn = serving and not (ec.bidirectional or ec.zero_init or ec.attn_mask)
+    pipe.encoding(images[:1])                  # warm-up outside the counted run
+    reset_counts()
+    ids_hi, t_hi = timed(lambda: pipe.encoding(images))
+    c1 = counts()
+    ids_def, t_def = timed(lambda: pipe.encoding(images, precision="default"))
+    c2 = counts()
+    expect = [(1, 0, 0, 0), (2, ec.depth if kernel_attn else 0, 0, 0)]
+    if [c1, c2] != expect:
+        raise RuntimeError(f"{label}: launch counts {[c1, c2]} differ from the path's {expect}")
+    for ids in (ids_hi, ids_def):
+        if ids.dtype != torch.int32 or tuple(ids.shape) != (B, n_tok) \
+                or int(ids.min()) < 0 or int(ids.max()) >= ec.codebook_size:
+            raise RuntimeError(f"{label}: bad token ids {ids.dtype} {tuple(ids.shape)}")
+    before = counts()
+    ids_hi_p = pipe.encoding(images, kernels="plain")
+    ids_def_p = pipe.encoding(images, precision="default", kernels="plain")
+    _, margins = pipe.encoding_margins(images, kernels="plain")
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    diff_hi = ids_hi != ids_hi_p
+    if int((diff_hi & (margins >= VQ_MARGIN)).sum()) != 0:
+        raise RuntimeError(f"{label} 'highest': kernel ids differ from plain ids outside the margin")
+    # 'default' is the bf16 trunk for the dual modes, else the fp32 trunk
+    # under the global TF32 settings
+    m_def = DEFAULT_TIER_MARGIN if serving else HIGH_TIER_MARGIN
+    diff_def = ids_def != ids_def_p
+    if int((diff_def & (margins >= m_def)).sum()) != 0:
+        raise RuntimeError(f"{label} 'default': kernel ids differ from plain ids outside the margin")
+    agree = 1.0 - diff_def.float().mean().item()
+    if agree < 0.5:
+        raise RuntimeError(f"{label} 'default': only {agree:.3f} of ids agree with the plain path")
+    w_hi = warm(lambda: pipe.encoding(images), 2)
+    w_def = warm(lambda: pipe.encoding(images, precision="default"), 2)
+    log(f"  {label}: ids {tuple(ids_hi.shape)} (N = {ids_hi.numel()} VQ rows), kernel vs plain "
+        f"'highest' differing {int(diff_hi.sum())}, 'default' agreeing {agree:.4f} "
+        f"(margin rule {m_def}; 'default' {'bf16' if serving else 'fp32'} trunk)")
+    log(f"encode {label} 'highest': {B / w_hi:.2f} images/s (batch {B}, {w_hi * 1e3:.1f} ms warm, "
+        f"{t_hi * 1e3:.1f} ms first call) on {card}")
+    log(f"encode {label} 'default': {B / w_def:.2f} images/s (batch {B}, {w_def * 1e3:.1f} ms warm, "
+        f"{t_def * 1e3:.1f} ms first call) on {card}")
+    del pipe
+    release()
+    return c2
+
+
+def variant_decoder_path(card, images, noise2, noise1, do_profile):
+    """MMDiT_XL with qk-norm 'ln', the 'pos_t_emb' adaLN and mean pooling,
+    its uncond_y read from a file: the 50-step bf16 decode at cfg 1.0 and
+    2.0, one sampler step of the batched CFG trunk against the two separate
+    calls, and the int8 decode at cfg 1.0."""
+    import os
+
+    from selftoktokenizer_tpu_torch.models import flow as flow_mod
+    from selftoktokenizer_tpu_torch.models.mmdit import (
+        mmdit_apply, mmdit_cfg_batched, mmdit_cfg_inference, mmdit_uncond_xonly)
+    from selftoktokenizer_tpu_torch.ops import _build, routing
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    uy_path = os.path.join(_build.BUILD_DIR, "chip_smoke_uncond_y.pt")
+    g = torch.Generator().manual_seed(11)
+    torch.save(torch.randn(1536, generator=g), uy_path)
+    cfg = zoo_config(decoder_config={"qk_norm": "ln", "time_adaln": "pos_t_emb",
+                                     "sd3_cond_pooling": "mean", "uncond_y_file": uy_path})
+    pipe = build_pipeline(cfg, torch.bfloat16)
+    dcfg = pipe.tcfg.decoder
+    depth, steps = dcfg.depth, 50
+    if (dcfg.hidden_size, dcfg.qk_norm, dcfg.time_adaln, dcfg.sd3_cond_pooling) != \
+            (1536, "ln", "pos_t_emb", "mean") or pipe.model.uncond_y is None \
+            or tuple(pipe._ctx_mods.shape) != (depth - 1, 512, 1536):
+        raise RuntimeError("not the variant decoder at the flagship widths")
+    ids = pipe.encoding(images)
+
+    reset_counts()
+    (_, lat2), t_dec = timed(lambda: pipe.decoding(ids[:2], noise=noise2, cfg_scale=1.0,
+                                                   return_latents=True))
+    c1 = counts()
+    (_, lat1), t_cfg = timed(lambda: pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0,
+                                                   return_latents=True))
+    c2 = counts()
+    expect = [(0, depth * steps, 0, 0), (0, 3 * depth * steps, 0, 0)]
+    if [c1, c2] != expect:
+        raise RuntimeError(f"variant decode launch counts {[c1, c2]} differ from {expect}")
+    before = counts()
+    _, lat2_p = pipe.decoding(ids[:2], noise=noise2, cfg_scale=1.0, kernels="plain",
+                              return_latents=True)
+    _, lat1_p = pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0, kernels="plain",
+                              return_latents=True)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    latent_check("variant decode bf16 cfg 1.0 latents, kernels vs forced plain", lat2, lat2_p)
+    latent_check("variant decode bf16 cfg 2.0 latents, kernels vs forced plain", lat1, lat1_p)
+
+    # one sampler step at cfg 2.0 of the batched CFG trunk (2B = 4 rows, the
+    # uncond half's context keys all masked) against the two separate calls
+    dd, mods, m = torch.bfloat16, pipe._ctx_mods.to(torch.bfloat16), pipe.model
+    ehs = pipe._tokens_to_context(ids[:2])
+    sub = {k: v[:1] for k, v in pipe.sched.items()}
+    x, t = noise2, torch.full((2,), float(pipe.sched["scheduled_t"][0]), device="cuda")
+    mask = torch.arange(512, device="cuda")[None, :] <= int(pipe.step_k[0])
+    mask = mask.expand(2, 512)
+
+    def pair(x, t, e, mask):
+        return tuple(v.float() for v in mmdit_cfg_batched(m, dcfg, x.to(dd), t, e.to(dd), mask,
+                                                          ctx_mods=mods))
+
+    def cond(x, t, e, mask):
+        return mmdit_apply(m, dcfg, x.to(dd), t, e.to(dd), mask=mask, ctx_mods=mods).float()
+
+    def uncond(x, t, e, mask):
+        return mmdit_uncond_xonly(m, dcfg, x.to(dd), t).float()
+
+    def step(**kw):
+        return flow_mod.p_sample_loop(kw.pop("model_fn", None), sub, x, ehs,
+                                      step_k=pipe.step_k[:1], K=512, cfg_scale=2.0, **kw)
+
+    with torch.no_grad():
+        reset_counts()
+        v_c, v_u = pair(x, t, ehs, mask)
+        c_pair = counts()
+        if c_pair != (0, depth, 0, 0):
+            raise RuntimeError(f"mmdit_cfg_batched launch counts {c_pair} differ from "
+                               f"{(0, depth, 0, 0)}")
+        s_c = cond(x, t, ehs, mask)
+        s_u = mmdit_cfg_inference(m, dcfg, x.to(dd), t, None, mask=torch.zeros_like(mask),
+                                  ctx_mods=mods).float()
+        with routing.kernel_route("plain"):
+            p_c, p_u = pair(x, t, ehs, mask)
+        # the same kernels on the same rows: equal bit for bit
+        for name, got, want in (("cond, vs mmdit_apply", v_c, s_c),
+                                ("uncond, vs mmdit_cfg_inference", v_u, s_u)):
+            latent_check(f"mmdit_cfg_batched velocity {name}", got, want, tol=0.0)
+        for name, got, want in (("cond, vs forced plain", v_c, p_c),
+                                ("uncond, vs forced plain", v_u, p_u)):
+            latent_check(f"mmdit_cfg_batched velocity {name}", got, want)
+        x_pair = step(cfg_pair_fn=pair)
+        x_two = step(model_fn=cond, uncond_fn=uncond)
+        latent_check("one sampler step, cfg_pair_fn vs uncond_fn + model_fn", x_pair, x_two)
+        w_pair = warm(lambda: step(cfg_pair_fn=pair), 5)
+        w_two = warm(lambda: step(model_fn=cond, uncond_fn=uncond), 5)
+        if do_profile:
+            profile_train_step(lambda: step(cfg_pair_fn=pair), w_pair, "batched-CFG sampler")
+            profile_train_step(lambda: step(model_fn=cond, uncond_fn=uncond), w_two,
+                               "cond + x-only uncond sampler")
+    total = tuple(a + b for a, b in zip(c2, c_pair))
+    w_dec = warm(lambda: pipe.decoding(ids[:2], noise=noise2, cfg_scale=1.0), 2)
+    w_cfg = warm(lambda: pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0), 1)
+    log(f"decode variant bf16, 50 steps, cfg 1.0: {w_dec / 2:.3f} s/image (batch 2, "
+        f"{w_dec:.3f} s warm, {t_dec:.3f} s first call) on {card}")
+    log(f"decode variant bf16, 50 steps, cfg 2.0: {w_cfg:.3f} s/image (batch 1, warm; "
+        f"{t_cfg:.3f} s first call) on {card}")
+    log(f"sampler step at cfg 2.0, batch 2: batched CFG trunk {w_pair * 1e3:.1f} ms, "
+        f"cond + x-only uncond calls {w_two * 1e3:.1f} ms (warm) on {card}")
+    del pipe, m, mods
+    release()
+
+    pipe = build_pipeline(cfg, "int8")
+    per_cond = 8 * (depth - 1) + 5 + 2
+    ids8 = ids[:2]
+    reset_counts()
+    (_, lat8), t8 = timed(lambda: pipe.decoding(ids8, noise=noise2, cfg_scale=1.0,
+                                                return_latents=True))
+    c8 = counts()
+    if c8 != (0, depth * steps, per_cond * steps, 0):
+        raise RuntimeError(f"variant int8 launch counts {c8} differ from "
+                           f"{(0, depth * steps, per_cond * steps, 0)}")
+    before = counts()
+    _, lat8_p = pipe.decoding(ids8, noise=noise2, cfg_scale=1.0, kernels="plain",
+                              return_latents=True)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    latent_check("variant decode int8 cfg 1.0 latents, kernels vs forced plain", lat8, lat8_p)
+    w8 = warm(lambda: pipe.decoding(ids8, noise=noise2, cfg_scale=1.0), 1)
+    log(f"decode variant int8, 50 steps, cfg 1.0: {w8 / 2:.3f} s/image (batch 2, {w8:.3f} s "
+        f"warm, {t8:.3f} s first call) on {card}")
+    del pipe
+    release()
+    return tuple(a + b for a, b in zip(total, c8))
+
+
+def register_decoder_path(card, images, noise1):
+    """MMDiT_XL with 4 register tokens: the 50-step bf16 decode at cfg 2.0,
+    whose unconditional branch is mmdit_cfg_inference (the register keys
+    stay active: 4 + 512 + 256 keys). No yml sets register_length, so the
+    decoder config takes it here and the tokenizer is built from it."""
+    import dataclasses
+
+    from selftoktokenizer_tpu_torch.models.tokenizer import ImageTokenizer, init_weights_
+
+    pipe = build_pipeline(zoo_config(), torch.bfloat16, encode_only=True)
+    pipe.tcfg.decoder = dataclasses.replace(pipe.tcfg.decoder, register_length=ZOO_REGISTERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    with torch.device("cuda"):
+        tok = ImageTokenizer(pipe.tcfg)
+    init_weights_(tok, gen, zero_init_std=0.02)
+    pipe.set_weights(tok)
+    del tok
+    depth, steps = pipe.tcfg.decoder.depth, 50
+    if tuple(pipe.model.register.shape) != (1, ZOO_REGISTERS, 1536) \
+            or tuple(pipe._ctx_mods.shape) != (depth - 1, ZOO_REGISTERS + 512, 6 * 1536):
+        raise RuntimeError("not the register decoder at the flagship widths")
+    ids = pipe.encoding(images[:1])
+    reset_counts()
+    (_, lat), t_first = timed(lambda: pipe.decoding(ids, noise=noise1, cfg_scale=2.0,
+                                                    return_latents=True))
+    c = counts()
+    if c != (0, 2 * depth * steps, 0, 0):
+        raise RuntimeError(f"register decode launch counts {c} differ from "
+                           f"{(0, 2 * depth * steps, 0, 0)}")
+    before = counts()
+    _, lat_p = pipe.decoding(ids, noise=noise1, cfg_scale=2.0, kernels="plain",
+                             return_latents=True)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    latent_check("register decode bf16 cfg 2.0 latents, kernels vs forced plain", lat, lat_p)
+    w = warm(lambda: pipe.decoding(ids, noise=noise1, cfg_scale=2.0), 1)
+    log(f"decode registers bf16, 50 steps, cfg 2.0: {w:.3f} s/image (batch 1, warm; "
+        f"{t_first:.3f} s first call) on {card}")
+    del pipe
+    release()
+    return c
+
+
+def renderdit_path(card, images):
+    """RenderDiT_XL at batch 8 in bf16: one pass of renderdit_apply (a
+    fixed 16 x 16 mask-token grid, one key mask for every row: one kernel
+    call a block) against the forced plain versions. Each row keeps a
+    prefix of its 512 tokens, and odd rows mask the last 56 mask tokens."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_RENDERER_CONFIG
+    from selftoktokenizer_tpu_torch.models.mmdit import renderdit_apply
+    from selftoktokenizer_tpu_torch.ops import routing
+
+    pipe = build_pipeline(zoo_config(FLAGSHIP_RENDERER_CONFIG, model="RenderDiT_XL"),
+                          torch.bfloat16)
+    check_decoder_widths(pipe, renderer=True)
+    dcfg, depth = pipe.tcfg.decoder, pipe.tcfg.decoder.depth
+    ctx = pipe._tokens_to_context(pipe.encoding(images))
+    B = ctx.shape[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    active = torch.randint(1, dcfg.K + 1, (B,), generator=gen, device="cuda")
+    mask = torch.arange(dcfg.K, device="cuda")[None, :] < active[:, None]
+    x_mask = torch.ones((B, 256), dtype=torch.bool, device="cuda")
+    x_mask[1::2, 200:] = False
+
+    @torch.no_grad()
+    def render(route="cuda", mask=mask):
+        with routing.kernel_route(route):
+            return renderdit_apply(pipe.model, dcfg, ctx, mask=mask, x_mask=x_mask,
+                                   ctx_mods=pipe._ctx_mods)
+
+    render()                                   # warm-up outside the counted run
+    reset_counts()
+    lat, t_first = timed(render)
+    c = counts()
+    if c != (0, depth, 0, 0):
+        raise RuntimeError(f"RenderDiT launch counts {c} differ from {(0, depth, 0, 0)}")
+    if tuple(lat.shape) != (8, 32, 32, 16):
+        raise RuntimeError(f"RenderDiT latents {tuple(lat.shape)}")
+    before = counts()
+    lat_p = render("plain")
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    latent_check("RenderDiT bf16 latents, kernels vs forced plain", lat, lat_p)
+    # the masks reach the output: every key active gives other latents
+    lat_full = render(mask=None)
+    if (lat_full.float() - lat.float()).abs().max().item() == 0:
+        raise RuntimeError("RenderDiT latents do not depend on the token mask")
+    w = warm(render, 3)
+    log(f"render RenderDiT_XL bf16, one pass: {8 / w:.2f} images/s (batch 8, {w * 1e3:.1f} ms "
+        f"warm, {t_first * 1e3:.1f} ms first call) on {card}")
+    del pipe, ctx
+    release()
+    return c
+
+
+def zoo_phase(card, do_profile=False):
+    """The rest of the model zoo at full width on seeded non-zero weights:
+    each path's counts set to 0 just before it and read just after."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    images = torch.rand((8, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    noise2 = torch.randn((2, 32, 32, 16), generator=gen, device="cuda")
+    noise1 = noise2[:1].clone()
+    by_path = {}
+    for label, enc, ec, k in ZOO_ENCODERS:
+        t0 = time.time()
+        by_path[f"zoo encode {label}"] = zoo_encoder_path(
+            card, label, zoo_config(enc=enc, encoder_config=ec, k=k), images)
+        log(f"  zoo encoder {label}: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["zoo variant decoder (ln, pos_t_emb, mean pooling)"] = variant_decoder_path(
+        card, images, noise2, noise1, do_profile)
+    log(f"  zoo variant decoder: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["zoo register decoder"] = register_decoder_path(card, images, noise1)
+    log(f"  zoo register decoder: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["zoo RenderDiT_XL"] = renderdit_path(card, images)
+    log(f"  zoo RenderDiT_XL: {time.time() - t0:.1f} s")
+    return by_path
+
+
 # ----------------------------------------------------------------- train ---
 
 TRAIN_BATCH = 4
@@ -1179,9 +1606,9 @@ def hold_loss(name, got, want, ref="the plain step"):
 
 
 def profile_train_step(fn, warm_s, label):
-    """Device time of one extra train step: busy share of the warm wall, the
-    attention kernel's forward and the attention backward (the fp32
-    recompute, under a profiler range)."""
+    """Device time of one extra step (a train step, or a sampler step of the
+    zoo): busy share of the warm wall, the attention kernel's forward and
+    the attention backward (the fp32 recompute, under a profiler range)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1731,6 +2158,8 @@ def main_path_phase(card, do_profile=False):
     by_path["renderer bf16 + int8"] = renderer_path(card, ref)
     del ref
     release()
+    log("phase zoo:")
+    by_path.update(zoo_phase(card, do_profile))
     log("phase train:")
     by_path.update(train_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
@@ -1743,13 +2172,14 @@ def main_path_phase(card, do_profile=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["kernels", "train"], default=None,
-                    help="stop after the kernel phase, or run the train phase alone")
+    ap.add_argument("--only", choices=["kernels", "train", "zoo"], default=None,
+                    help="stop after the kernel phase, or run the train or the zoo phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm bf16 and one warm int8 decode: "
-                         "device time by kernel, busy share")
+                         "device time by kernel, busy share; the train steps; "
+                         "the zoo's two forms of a CFG sampler step")
     ap.add_argument("--q8-sweep", action="store_true",
                     help="also time every q8_matmul plan (tile width, K splits) "
                          "at the main path's shapes")
@@ -1771,12 +2201,14 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only == "train":
-        log("phase train:")
-        by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in train_phase(card, args.profile).items()}
-        log(f"  launches on the train paths: {json.dumps(by_path)}")
+    if args.only in ("train", "zoo"):
+        log(f"phase {args.only}:")
+        phase = train_phase if args.only == "train" else zoo_phase
+        paths = phase(card, args.profile)
+        by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
+        log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")
         log(card)
-        log(f"chip_smoke: stopped after phase train ({time.time() - t_start:.1f} s)")
+        log(f"chip_smoke: stopped after phase {args.only} ({time.time() - t_start:.1f} s)")
         return 0
 
     # phase 3: kernels against their plain versions

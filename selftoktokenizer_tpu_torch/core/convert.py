@@ -74,7 +74,7 @@ def _rmsnorm(out, prefix, p):
 
 
 def encoder_state_dict(p, cfg):
-    """JAX encoder tree (mode 'dual') -> reference-named state dict."""
+    """JAX encoder tree (any mode) -> reference-named state dict."""
     out = {}
     _patch_embed(out, "x_embedder", p["x_embedder"], cfg.patch_size, cfg.in_channels)
     out["pos_embed"] = _t(p["pos_embed"])
@@ -86,18 +86,35 @@ def encoder_state_dict(p, cfg):
     if "project_out" in q:
         _linear(out, "quantizer.project_out", q["project_out"])
     out["quantizer._codebook.embed"] = _t(np.asarray(q["embed"])[None])
-    out["query_tokens"] = _t(p["query_tokens"])
+    mode = cfg.qformer_mode
+    if mode != "vit":
+        out["query_tokens"] = _t(p["query_tokens"])
+    if mode == "qformer":
+        qf = p["qformer"]
+        for i in range(cfg.depth):
+            b = _unstack(qf["blocks"], i)
+            for n in ("to_q", "kv", "proj"):
+                _linear(out, f"qformer.qformer_blocks.{i}.{n}", b[n])
+        _mlp(out, "qformer.vision_proj", qf["vision_proj"])
+        return out
     for i in range(cfg.depth):
         b = _unstack(p["blocks"], i)
         pre = f"blocks.{i}."
-        for n in ("qkv", "query_linear", "proj", "query_proj", "to_query_kv"):
-            _linear(out, pre + "attn." + n, b[n])
+        if mode == "dual":
+            for n in ("qkv", "query_linear", "proj", "query_proj", "to_query_kv"):
+                if n in b:
+                    _linear(out, pre + "attn." + n, b[n])
+            if "gate" in b:
+                out[pre + "attn.gate"] = _t(b["gate"])
+            _mlp(out, pre + "q_mlp", b["q_mlp"])
+            if cfg.qk_norm:
+                for n in ("q_norm", "k_norm", "query_qnorm", "query_knorm"):
+                    _rmsnorm(out, pre + "attn." + n, b[n])
+        else:   # vit and concat: one fused-attention block layout
+            _linear(out, pre + "attn.qkv", b["attn"]["qkv"])
+            _linear(out, pre + "attn.proj", b["attn"]["proj"])
         _mlp(out, pre + "mlp", b["mlp"])
-        _mlp(out, pre + "q_mlp", b["q_mlp"])
-        if cfg.qk_norm:
-            for n in ("q_norm", "k_norm", "query_qnorm", "query_knorm"):
-                _rmsnorm(out, pre + "attn." + n, b[n])
-        if cfg.time_adaln:
+        if cfg.time_adaln and mode != "vit":
             _linear(out, pre + "adaLN_modulation.1", b["adaLN"])
             _timestep_embedder(out, pre + "t_embedder", b["t_embedder"])
     return out
@@ -109,6 +126,9 @@ def _dismantled(out, pre, b, cfg, pre_only=False):
     if cfg.qk_norm == "rms":
         _rmsnorm(out, pre + "attn.ln_q", b["ln_q"])
         _rmsnorm(out, pre + "attn.ln_k", b["ln_k"])
+    elif cfg.qk_norm == "ln":
+        _layernorm(out, pre + "attn.ln_q", b["ln_q"])
+        _layernorm(out, pre + "attn.ln_k", b["ln_k"])
     if not pre_only:
         _linear(out, pre + "attn.proj", b["proj"])
         _mlp(out, pre + "mlp", b["mlp"])

@@ -1,23 +1,36 @@
-"""Selftok dual-stream Qformer encoder (counterpart of the reference
-``models/encoder.py:46-641``, mode ``dual``, unidirectional).
+"""Selftok encoders: the Qformer encoder in its four interaction modes and
+the plain ViT encoder (counterpart of the reference ``models/encoder.py``).
+
+Modes (``cfg.qformer_mode``):
+
+* ``dual``: two-stream blocks. Unidirectional (the query attends to
+  [image keys || query keys]), bidirectional (one joint self-attention over
+  [x || query]) or zero-init (the unidirectional form with the image part
+  softmaxed on its own and scaled by ``tanh(gate)``); ``attn_mask`` makes
+  the query keys causal.
+* ``concat``: ViT blocks over [x || query]; the query update reuses the
+  x-stream MLP, as the reference does.
+* ``qformer``: stacked cross-attention of the queries over the image tokens
+  and an l2-normalised vision projection.
+* ``vit``: plain ViT blocks; the outputs of the last K blocks are the K
+  token groups, each of ``patches_per_token`` patches.
 
 The modules own the weights under the reference checkpoint's names
-(``blocks.{i}.attn.qkv.weight``, ``blocks.{i}.adaLN_modulation.1.weight``,
+(``blocks.{i}.attn.qkv.weight``, ``qformer.qformer_blocks.{i}.to_q.weight``,
 ``x_embedder.proj.weight`` ...); the ``*_apply`` functions, named as in the
 reference, do the work. Feature maps are NHWC.
 
-With ``cfg.gradient_checkpointing`` every dual block runs under
-``torch.utils.checkpoint`` while gradients are recorded. In training the
-query attention stays plain fp32 ``sdpa`` (``fast_attn=False``).
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md queue
-item): the bidirectional, zero-init, concat, qformer and vit encoder modes
-and ``attn_mask``.
+Only the unidirectional dual query attention without a mask takes the
+attention kernel (``fast_attn``, the bf16 serving path); every other
+attention of the encoders is plain fp32-softmax ``sdpa``, as in the
+reference. With ``cfg.gradient_checkpointing`` every dual block runs under
+``torch.utils.checkpoint`` while gradients are recorded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -32,10 +45,6 @@ from selftoktokenizer_tpu_torch.ops.linear import (
     gate, gelu_tanh, linear, linear_apply, modulate, patch_embed, timestep_embedder)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
 from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_2d
-
-_LATER_MODES = ("ROADMAP.md queue item 'remaining encoder modes / multires / "
-                "DiT / DDPM / text encoders'")
-
 
 @dataclasses.dataclass
 class EncoderConfig:
@@ -151,7 +160,10 @@ class DualAttention(nn.Module):
         self.query_linear = nn.Linear(Cq, 3 * Cq)
         self.proj = nn.Linear(C, C)
         self.query_proj = nn.Linear(Cq, Cq)
-        self.to_query_kv = nn.Linear(C, 2 * Cq)
+        if not cfg.bidirectional or cfg.zero_init:
+            self.to_query_kv = nn.Linear(C, 2 * Cq)
+        if cfg.zero_init:
+            self.gate = nn.Parameter(torch.zeros(1, cfg.query_heads, 1, 1))
         if cfg.qk_norm:
             self.q_norm = RMSNormWeight(C // cfg.num_heads)
             self.k_norm = RMSNormWeight(C // cfg.num_heads)
@@ -173,6 +185,45 @@ class DualBlock(nn.Module):
             self.adaLN_modulation = None
 
 
+class ViTAttention(nn.Module):
+    def __init__(self, hidden):
+        super().__init__()
+        self.qkv = nn.Linear(hidden, 3 * hidden)
+        self.proj = nn.Linear(hidden, hidden)
+
+
+class ViTBlock(nn.Module):
+    """A ViT block; with ``adaln`` (the concat mode under time_adaln) also
+    the per-query-position modulation of the query stream."""
+
+    def __init__(self, cfg: EncoderConfig, adaln=False):
+        super().__init__()
+        self.attn = ViTAttention(cfg.hidden_size)
+        self.mlp = Mlp(cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio))
+        if adaln:
+            self.adaLN_modulation = nn.Sequential(
+                nn.SiLU(), nn.Linear(cfg.query_dim, 6 * cfg.query_dim))
+            self.t_embedder = TimestepEmbedder(cfg.query_dim)
+        else:
+            self.adaLN_modulation = None
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, dim, c_dim):
+        super().__init__()
+        self.to_q = nn.Linear(dim, dim)
+        self.kv = nn.Linear(c_dim, 2 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+
+class QFormer(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.qformer_blocks = nn.ModuleList(
+            CrossAttention(cfg.query_dim, cfg.hidden_size) for _ in range(cfg.depth))
+        self.vision_proj = Mlp(cfg.query_dim, int(cfg.query_dim * cfg.mlp_ratio))
+
+
 class LayerNormWeight(nn.Module):
     def __init__(self, dim):
         super().__init__()
@@ -181,11 +232,12 @@ class LayerNormWeight(nn.Module):
 
 
 class QformerEncoder(nn.Module):
-    """Weights of the dual-stream encoder and its quantizer."""
+    """Weights of the encoder (any mode) and its quantizer."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.qformer_mode not in ("dual", "concat", "qformer", "vit"):
+            raise ValueError(f"unknown encoder mode {cfg.qformer_mode!r}")
         self.cfg = cfg
         max_sz = cfg.pos_embed_max_size
         grid = max_sz if max_sz else cfg.input_size // cfg.patch_size
@@ -200,20 +252,18 @@ class QformerEncoder(nn.Module):
         self.quantizer = vq_mod.VectorQuantize(
             latent_dim=cfg.encoder_out_dim, code_dim=cfg.code_dim,
             codebook_size=cfg.codebook_size, output_dim=cfg.encoder_hidden_size)
-        self.query_tokens = nn.Parameter(torch.empty(1, cfg.K, cfg.query_dim))
-        self.blocks = nn.ModuleList(DualBlock(cfg) for _ in range(cfg.depth))
-
-
-def _check_supported(cfg: EncoderConfig):
-    if cfg.qformer_mode != "dual":
-        raise NotImplementedError(
-            f"encoder mode {cfg.qformer_mode!r} is not ported yet: {_LATER_MODES}")
-    if cfg.bidirectional or cfg.zero_init:
-        raise NotImplementedError(
-            f"bidirectional / zero-init dual attention is not ported yet: {_LATER_MODES}")
-    if cfg.attn_mask:
-        raise NotImplementedError(
-            f"encoder attn_mask is not ported yet: {_LATER_MODES}")
+        mode = cfg.qformer_mode
+        if mode != "vit":
+            self.query_tokens = nn.Parameter(torch.empty(1, cfg.K, cfg.query_dim))
+        if mode == "dual":
+            self.blocks = nn.ModuleList(DualBlock(cfg) for _ in range(cfg.depth))
+        elif mode == "vit":
+            self.blocks = nn.ModuleList(ViTBlock(cfg) for _ in range(cfg.depth))
+        elif mode == "concat":
+            self.blocks = nn.ModuleList(ViTBlock(cfg, adaln=cfg.time_adaln)
+                                        for _ in range(cfg.depth))
+        else:
+            self.qformer = QFormer(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -225,14 +275,21 @@ def _merge_heads(t):
     return t.permute(0, 2, 1, 3).reshape(b, n, h * d)
 
 
-def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query,
+def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query, mask=None,
                          fast_attn=False):
-    """Two-stream attention, unidirectional: x [B,N,C] self-attends; query
-    [B,K,Cq] attends to [x-derived KV || query KV], image keys first.
+    """Two-stream attention. x: [B,N,C] image stream; query: [B,K,Cq].
 
-    fast_attn routes the query attention through ``serving_attention`` (the
-    CUDA kernel); otherwise both attentions are plain fp32-softmax sdpa. The
-    x-stream self-attention (head dim 16 at the flagship) is always plain.
+    Unidirectional: x self-attends; the query attends to [x-derived KV ||
+    query KV], image keys first. Bidirectional: one joint self-attention
+    over [x || query]. Zero-init: the unidirectional form with the image
+    keys and the query keys each softmaxed on their own, the image part
+    scaled by tanh(gate) per head, in fp32. mask: the query rows' boolean
+    mask [1, 1, K, N+K] (``attn_mask``).
+
+    fast_attn routes the unidirectional query attention without a mask
+    through ``serving_attention`` (the CUDA kernel); every other attention
+    is plain fp32-softmax sdpa. The x-stream self-attention (head dim 16 at
+    the flagship) is always plain.
     """
     B, N, C = x.shape
     _, K, Cq = query.shape
@@ -249,18 +306,34 @@ def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query,
         B, K, 3, QH, Cq // QH).permute(2, 0, 3, 1, 4)
     qq, qk, qv = qqkv[0], qqkv[1], qqkv[2]
 
-    kv = linear(x, p.to_query_kv.weight, p.to_query_kv.bias).reshape(
-        B, N, 2, QH, Cq // QH).permute(2, 0, 3, 1, 4)
-    x_out = sdpa(xq, xk, xv)
-    k2 = torch.cat([kv[0], qk], dim=2)
-    v2 = torch.cat([kv[1], qv], dim=2)
-    if cfg.qk_norm:
-        qq = rms_norm(qq, p.query_qnorm.weight)
-        k2 = rms_norm(k2, p.query_knorm.weight)
-    if fast_attn:
-        q_out = serving_attention(qq, k2, v2)
+    if cfg.bidirectional and not cfg.zero_init:
+        if cfg.qk_norm:
+            qq = rms_norm(qq, p.query_qnorm.weight)
+            qk = rms_norm(qk, p.query_knorm.weight)
+        out = sdpa(torch.cat([xq, qq], dim=2), torch.cat([xk, qk], dim=2),
+                   torch.cat([xv, qv], dim=2), mask=mask)
+        x_out, q_out = out[:, :, :N], out[:, :, N:]
     else:
-        q_out = sdpa(qq, k2, v2)
+        kv = linear(x, p.to_query_kv.weight, p.to_query_kv.bias).reshape(
+            B, N, 2, QH, Cq // QH).permute(2, 0, 3, 1, 4)
+        x_out = sdpa(xq, xk, xv)
+        k2 = torch.cat([kv[0], qk], dim=2)
+        v2 = torch.cat([kv[1], qv], dim=2)
+        if cfg.qk_norm:
+            qq = rms_norm(qq, p.query_qnorm.weight)
+            k2 = rms_norm(k2, p.query_knorm.weight)
+        if cfg.zero_init:
+            scores = torch.matmul(qq.float(), k2.float().transpose(-1, -2)) * (
+                1.0 / math.sqrt(Cq // QH))
+            if mask is not None:
+                scores = scores.masked_fill(~mask, float("-inf"))
+            w = torch.cat([torch.tanh(p.gate.float()) * torch.softmax(scores[..., :N], dim=-1),
+                           torch.softmax(scores[..., N:], dim=-1)], dim=-1)
+            q_out = torch.matmul(w.to(qq.dtype), v2)
+        elif fast_attn and mask is None:
+            q_out = serving_attention(qq, k2, v2)
+        else:
+            q_out = sdpa(qq, k2, v2, mask=mask)
 
     x_out = linear(_merge_heads(x_out), p.proj.weight, p.proj.bias)
     q_out = linear(_merge_heads(q_out), p.query_proj.weight, p.query_proj.bias)
@@ -278,7 +351,8 @@ def dual_block_mods(p: DualBlock, positions):
     return tuple(torch.chunk(mods, 6, dim=1))
 
 
-def dual_block_apply(p: DualBlock, cfg: EncoderConfig, x, q, mods, fast_attn=False):
+def dual_block_apply(p: DualBlock, cfg: EncoderConfig, x, q, mods, mask=None,
+                     fast_attn=False):
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
     s = cfg.ln_scale
 
@@ -290,7 +364,7 @@ def dual_block_apply(p: DualBlock, cfg: EncoderConfig, x, q, mods, fast_attn=Fal
 
     x_attn, q_attn = dual_attention_apply(
         p.attn, cfg, layer_norm(x),
-        modulate(pre_q_norm(q), shift_msa, scale_msa, 0), fast_attn=fast_attn)
+        modulate(pre_q_norm(q), shift_msa, scale_msa, 0), mask=mask, fast_attn=fast_attn)
     x = x + x_attn
     x = x + mlp_apply(p.mlp, layer_norm(x))
     q = post_q_norm(s * q + gate(q_attn, gate_msa))
@@ -298,6 +372,60 @@ def dual_block_apply(p: DualBlock, cfg: EncoderConfig, x, q, mods, fast_attn=Fal
         mlp_apply(p.q_mlp, modulate(pre_q_norm(q), shift_mlp, scale_mlp, 0)),
         gate_mlp))
     return x, q
+
+
+# ---------------------------------------------------------------------------
+# ViT block, ConcatBlock, CrossAttention / QFormer
+# ---------------------------------------------------------------------------
+
+def vit_attention_apply(p: ViTAttention, heads, x):
+    B, N, C = x.shape
+    qkv = linear(x, p.qkv.weight, p.qkv.bias).reshape(
+        B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    out = sdpa(qkv[0], qkv[1], qkv[2])
+    return linear(_merge_heads(out), p.proj.weight, p.proj.bias)
+
+
+def vit_block_apply(p: ViTBlock, heads, x):
+    x = x + vit_attention_apply(p.attn, heads, layer_norm(x))
+    return x + mlp_apply(p.mlp, layer_norm(x))
+
+
+def concat_block_apply(p: ViTBlock, cfg: EncoderConfig, x, q, mods):
+    """Joint self-attention over [x || q]; the q update reuses the x-stream
+    MLP, as the reference's ConcatBlock does."""
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
+    N = x.shape[1]
+    joint = torch.cat([layer_norm(x), modulate(layer_norm(q), shift_msa, scale_msa, 0)],
+                      dim=1)
+    attn = vit_attention_apply(p.attn, cfg.num_heads, joint)
+    x = x + attn[:, :N]
+    q = q + gate(attn[:, N:], gate_msa)
+    x = x + mlp_apply(p.mlp, layer_norm(x))
+    q = q + gate(mlp_apply(p.mlp, modulate(layer_norm(q), shift_mlp, scale_mlp, 0)),
+                 gate_mlp)
+    return x, q
+
+
+def cross_attention_apply(p: CrossAttention, heads, x, c):
+    """The queries x [B,K,D] attend over c [B,N,c_dim]."""
+    B, K, D = x.shape
+    kv = linear(c, p.kv.weight, p.kv.bias).reshape(
+        B, c.shape[1], 2, heads, D // heads).permute(2, 0, 3, 1, 4)
+    q = linear(x, p.to_q.weight, p.to_q.bias).reshape(
+        B, K, heads, D // heads).permute(0, 2, 1, 3)
+    out = sdpa(q, kv[0], kv[1])
+    return linear(_merge_heads(out), p.proj.weight, p.proj.bias)
+
+
+def qformer_apply(p: QFormer, heads, image_feats, query_tokens):
+    """Stacked cross-attention, then the l2-normalised vision projection."""
+    q = query_tokens
+    for bp in p.qformer_blocks:
+        q = cross_attention_apply(bp, heads, q, image_feats)
+    proj = mlp_apply(p.vision_proj, q)
+    return proj / torch.clamp(torch.linalg.vector_norm(proj, dim=-1, keepdim=True),
+                              min=1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -323,24 +451,32 @@ def adaln_positions(cfg, length=None):
     return np.asarray(1000 + 8 * np.arange(L) if cfg.diti_positions else np.arange(L))
 
 
-def _dual_trunk(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
+def _positions(cfg, device):
+    return (torch.as_tensor(adaln_positions(cfg), dtype=torch.int32, device=device)
+            if cfg.time_adaln else None)
+
+
+def _query(p: QformerEncoder, cfg: EncoderConfig, x):
+    return p.query_tokens.expand(x.shape[0], cfg.K, cfg.query_dim).to(x.dtype)
+
+
+def _dual_trunk(p: QformerEncoder, cfg: EncoderConfig, x, mask=None, trunk_dtype=None,
                 fast_attn=False):
     """``depth`` DualBlocks. trunk_dtype=bfloat16 + fast_attn=True is the
     serving path: activations run bf16 (weights stay fp32 and are cast at
-    use; norm and softmax statistics stay fp32) and the query attention goes
-    through ``serving_attention``."""
-    positions = (torch.as_tensor(adaln_positions(cfg), dtype=torch.int32,
-                                 device=x.device) if cfg.time_adaln else None)
+    use; norm and softmax statistics stay fp32) and the unidirectional query
+    attention goes through ``serving_attention``."""
+    positions = _positions(cfg, x.device)
     if trunk_dtype is not None:
         x = x.to(trunk_dtype)
-    query = p.query_tokens.expand(x.shape[0], cfg.K, cfg.query_dim).to(x.dtype)
+    query = _query(p, cfg, x)
 
     def block(blk, x, query):
         mods = dual_block_mods(blk, positions)
         # the mods come out fp32; cast so modulate/gate do not promote the
         # query stream back to fp32 on the bf16 path
         mods = tuple(m if m is None else m.to(query.dtype) for m in mods)
-        return dual_block_apply(blk, cfg, x, query, mods, fast_attn=fast_attn)
+        return dual_block_apply(blk, cfg, x, query, mods, mask=mask, fast_attn=fast_attn)
 
     remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
     for blk in p.blocks:
@@ -352,11 +488,53 @@ def _dual_trunk(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
     return query
 
 
+def query_causal_mask(cfg: EncoderConfig, n_image, device):
+    """``attn_mask``: the query rows' mask [1, 1, K, N+K], every image key
+    visible and the query keys causal."""
+    tril = torch.tril(torch.ones((cfg.K, cfg.K), dtype=torch.bool, device=device))
+    return torch.cat([torch.ones((cfg.K, n_image), dtype=torch.bool, device=device), tril],
+                     dim=1)[None, None]
+
+
 def get_encoder_outs(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
                      fast_attn=False):
-    """Run the trunk; returns the K query tokens."""
-    _check_supported(cfg)
-    return _dual_trunk(p, cfg, x, trunk_dtype=trunk_dtype, fast_attn=fast_attn)
+    """Run the trunk on the embedded patches x [B,N,C]; returns the K query
+    tokens, or for ``vit`` the last K blocks' outputs as K token groups
+    [B, K*N, C]. trunk_dtype / fast_attn apply to the dual trunk only (the
+    serving path); the other modes run at the input's type."""
+    mode = cfg.qformer_mode
+    if mode == "dual":
+        mask = None
+        if cfg.attn_mask:
+            if cfg.bidirectional:
+                # the [K, N+K] mask cannot apply to the joint (N+K)-row
+                # attention; the reference fails on the same combination
+                raise ValueError(
+                    "attn_mask=True is unsupported with bidirectional=True "
+                    "(no reference config combines them; the reference "
+                    "errors identically)")
+            mask = query_causal_mask(cfg, x.shape[1], x.device)
+        return _dual_trunk(p, cfg, x, mask=mask, trunk_dtype=trunk_dtype,
+                           fast_attn=fast_attn)
+    if mode == "concat":
+        positions = _positions(cfg, x.device)
+        query = _query(p, cfg, x)
+        for blk in p.blocks:
+            x, query = concat_block_apply(blk, cfg, x, query, dual_block_mods(blk, positions))
+        return query
+    if mode == "qformer":
+        return qformer_apply(p.qformer, cfg.num_heads, x, _query(p, cfg, x))
+    outs = []
+    for i, blk in enumerate(p.blocks):
+        x = vit_block_apply(blk, cfg.num_heads, x)
+        if i >= cfg.depth - cfg.K:
+            outs.append(x)
+    return torch.cat(outs, dim=1)
+
+
+def patches_per_token(cfg: EncoderConfig, x_emb):
+    """Patches in one token: the image's patch count for ``vit``, else 1."""
+    return x_emb.shape[1] if cfg.qformer_mode == "vit" else 1
 
 
 def get_encoder_mask(cfg: EncoderConfig, d, patches_per_token=1, single_token=False):
@@ -370,13 +548,14 @@ def get_encoder_mask(cfg: EncoderConfig, d, patches_per_token=1, single_token=Fa
 
 
 def _pre_vq(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype, fast_attn):
+    """(quantizer input, patches per token)."""
     x_emb = _embed_patches(p, cfg, x)
     outs = get_encoder_outs(p, cfg, x_emb, trunk_dtype=trunk_dtype, fast_attn=fast_attn)
     if trunk_dtype is not None:
         outs = outs.float()
     if cfg.pre_norm:
         outs = layer_norm(outs, p.final_layer_norm.weight, p.final_layer_norm.bias)
-    return outs
+    return outs, patches_per_token(cfg, x_emb)
 
 
 def encoder_apply(p: QformerEncoder, cfg: EncoderConfig, x=None, d=None,
@@ -387,8 +566,9 @@ def encoder_apply(p: QformerEncoder, cfg: EncoderConfig, x=None, d=None,
 
     trunk_dtype/fast_attn: the serving path (bf16 trunk, kernel attention,
     ``fast`` VQ scores); patch embed and final norms stay fp32."""
+    ppt = 1
     if hidden_states is None:
-        outs = _pre_vq(p, cfg, x, trunk_dtype, fast_attn)
+        outs, ppt = _pre_vq(p, cfg, x, trunk_dtype, fast_attn)
         outs_q, indices, loss, log_dict = vq_mod.vq_apply(
             p.quantizer, outs, fast=trunk_dtype is not None)
         if cfg.post_norm:
@@ -399,7 +579,9 @@ def encoder_apply(p: QformerEncoder, cfg: EncoderConfig, x=None, d=None,
         outs = None
     if d is None:
         return outs_q, indices
-    enc_mask = get_encoder_mask(cfg, d, 1)
+    if hidden_states is not None and cfg.qformer_mode == "vit":
+        ppt = hidden_states.shape[1] // cfg.K
+    enc_mask = get_encoder_mask(cfg, d, ppt)
     encoder_hidden_states = outs_q * enc_mask[..., None].to(outs_q.dtype)
     return encoder_hidden_states, outs, outs_q, enc_mask, loss, log_dict, indices
 
@@ -408,5 +590,5 @@ def encoder_margins(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
                     fast_attn=False):
     """(ids, VQ top-2 margins [B,K]); trunk_dtype/fast_attn mirror
     encoder_apply so the margins certify the numerics of the path in use."""
-    outs = _pre_vq(p, cfg, x, trunk_dtype, fast_attn)
+    outs, _ = _pre_vq(p, cfg, x, trunk_dtype, fast_attn)
     return vq_mod.vq_margins(p.quantizer, outs, fast=trunk_dtype is not None)

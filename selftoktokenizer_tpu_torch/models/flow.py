@@ -74,14 +74,17 @@ def precompute_step_k(diti, sched, t2k=1.0):
 
 def p_sample_loop(model_fn, sched, noise, encoder_hidden_states, step_k=None,
                   K=512, cfg_scale=1.0, uncond_fn=None, super_mask=None,
-                  parameterization="velocity", shift=1.0, cond_vary=True):
+                  parameterization="velocity", shift=1.0, cond_vary=True,
+                  cfg_pair_fn=None):
     """Euler sampler.
 
     model_fn(x, t, ehs, mask) -> velocity. noise: NHWC [B,h,w,C] fp32;
     encoder_hidden_states: [B,K,D]; step_k: [steps] int per-step token count
     table (from precompute_step_k). Under cfg_scale != 1 the unconditional
-    branch ``uncond_fn`` runs first, then the conditional one. The schedule
-    scalars are fp32, and so is the state. Returns the final latent.
+    branch ``uncond_fn`` runs first, then the conditional one; or, with
+    cfg_pair_fn(x, t, ehs, mask) -> (v_cond, v_uncond), both in one call
+    (``mmdit.mmdit_cfg_batched``). The schedule scalars are fp32, and so is
+    the state. Returns the final latent.
     """
     steps = sched["scheduled_t"].shape[0]
     B = noise.shape[0]
@@ -108,6 +111,9 @@ def p_sample_loop(model_fn, sched, noise, encoder_hidden_states, step_k=None,
             mask = mask & super_mask
         if cfg_scale == 1.0:
             v = model_fn(img, t, encoder_hidden_states, mask)
+        elif cfg_pair_fn is not None:
+            v_c, v_un = cfg_pair_fn(img, t, encoder_hidden_states, mask)
+            v = v_un + cfg_scale * (v_c - v_un)
         else:
             v_un = uncond_fn(img, t, encoder_hidden_states, mask)
             v_c = model_fn(img, t, encoder_hidden_states, mask)

@@ -1,6 +1,6 @@
-"""MMDiT: the SD3-style joint-attention diffusion decoder and its one-step
-mask-token renderer (counterpart of the reference ``models/mmdit.py:49-616,
-717-745``).
+"""MMDiT: the SD3-style joint-attention diffusion decoder, its one-step
+mask-token renderer and the earlier standalone RenderDiT (counterpart of the
+reference ``models/mmdit.py``, less the multi-resolution streams).
 
 The modules own the weights under the reference checkpoint's names
 (``joint_blocks.{i}.x_block.attn.qkv.weight``, the last joint block with a
@@ -19,15 +19,27 @@ renderer's route (two key-masked attention calls a block). With
 ``cfg.use_checkpoint`` every joint block runs under
 ``torch.utils.checkpoint`` while gradients are recorded.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md queue
-item): ``register_length > 0`` under CFG
-(``mmdit_cfg_inference``), ``mmdit_cfg_batched``, pooled conditioning,
-qk-norm 'ln', the 'pos_t_emb' mode.
+Options: qk-norm 'rms' or 'ln' (a per-head LayerNorm with weight and
+bias); the context stream's adaLN from the per-sample conditioning
+('t_emb'), from a per-position table ('pos_emb') or from both added
+('pos_t_emb', whose table is the per-position embedding alone);
+``sd3_cond_pooling`` 'last' / 'mean' (a pooled conditioning through
+``y_embedder``, applied where the reference pools: the unconditional branch
+and RenderDiT). The CFG branches: ``mmdit_cfg_inference`` (context zeros,
+registers kept), ``mmdit_uncond_xonly`` (no registers: the context stream
+dropped) and ``mmdit_cfg_batched`` (both branches in one 2B trunk). The
+unconditional buffers ``uncond_y`` / ``uncond_c`` are read from the files
+the config names (``load_uncond_buffers``) and set on the module as
+non-persistent buffers (``set_uncond_buffers``). No path reads
+``uncond_c``: the reference splices it into a renderer's unconditional
+context in ``cfg_inference`` / ``cfg_batched``, which patch-embed the
+noised latent, and a renderer has no patch embedder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -37,8 +49,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from selftoktokenizer_tpu_torch.models.encoder import (
-    Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, _merge_heads, mlp_apply,
-    patch_embed_apply, timestep_embedder_apply)
+    LayerNormWeight, Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, _merge_heads,
+    mlp_apply, patch_embed_apply, timestep_embedder_apply)
 from selftoktokenizer_tpu_torch.ops.attention import serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
     linear, linear_apply, modulate, unpatchify)
@@ -100,15 +112,13 @@ class MMDiTConfig:
         return self.out_channels if self.out_channels is not None else self.in_channels
 
 
-def _check_supported(cfg: MMDiTConfig):
-    later = ("ROADMAP.md queue item 'remaining encoder modes / multires / DiT "
-             "/ DDPM / text encoders'")
-    if cfg.time_adaln not in ("pos_emb", "t_emb"):
-        raise NotImplementedError(f"time_adaln={cfg.time_adaln!r} is not ported yet: {later}")
-    if cfg.qk_norm not in (None, "rms"):
-        raise NotImplementedError(f"qk_norm={cfg.qk_norm!r} is not ported yet: {later}")
-    if cfg.sd3_cond_pooling:
-        raise NotImplementedError(f"sd3_cond_pooling is not ported yet: {later}")
+def _check_options(cfg: MMDiTConfig):
+    if cfg.time_adaln not in ("pos_emb", "pos_t_emb", "t_emb"):
+        raise ValueError(f"unknown time_adaln {cfg.time_adaln!r}")
+    if cfg.qk_norm not in (None, "rms", "ln"):
+        raise ValueError(f"unknown qk_norm {cfg.qk_norm!r}")
+    if cfg.sd3_cond_pooling not in (None, "last", "mean"):
+        raise ValueError(f"unknown sd3_cond_pooling {cfg.sd3_cond_pooling!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +130,10 @@ class _Attn(nn.Module):
         super().__init__()
         D = cfg.hidden_size
         self.qkv = nn.Linear(D, 3 * D, bias=cfg.qkv_bias)
-        if cfg.qk_norm == "rms":
-            self.ln_q = RMSNormWeight(D // cfg.num_heads)
-            self.ln_k = RMSNormWeight(D // cfg.num_heads)
+        norm = {"rms": RMSNormWeight, "ln": LayerNormWeight}.get(cfg.qk_norm)
+        if norm is not None:
+            self.ln_q = norm(D // cfg.num_heads)
+            self.ln_k = norm(D // cfg.num_heads)
         if not pre_only:
             self.proj = nn.Linear(D, D)
 
@@ -145,7 +156,7 @@ class JointBlock(nn.Module):
     def __init__(self, cfg: MMDiTConfig, last=False):
         super().__init__()
         self.context_block = DismantledBlock(
-            cfg, pre_only=last, pos_embedder=cfg.time_adaln == "pos_emb")
+            cfg, pre_only=last, pos_embedder=cfg.time_adaln in ("pos_emb", "pos_t_emb"))
         self.x_block = DismantledBlock(cfg)
 
 
@@ -165,7 +176,7 @@ class MMDiT(nn.Module):
 
     def __init__(self, cfg: MMDiTConfig):
         super().__init__()
-        _check_supported(cfg)
+        _check_options(cfg)
         self.cfg = cfg
         D = cfg.hidden_size
         self.t_embedder = TimestepEmbedder(D)
@@ -180,7 +191,7 @@ class MMDiT(nn.Module):
             self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
             self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, D))
         if cfg.adm_in_channels is not None:
-            # part of the checkpoint; only pooled conditioning reads it
+            # part of the checkpoint; pooled conditioning reads it
             self.y_embedder = TimestepEmbedder(D, dim_freq=cfg.adm_in_channels)
         base = 1000 + 8 * np.arange(cfg.K) if cfg.diti_positions else np.arange(cfg.K)
         # a sincos table at init, and trained like every other leaf
@@ -190,6 +201,27 @@ class MMDiT(nn.Module):
             self.register = nn.Parameter(torch.empty(1, cfg.register_length, D))
         self.joint_blocks = nn.ModuleList(
             JointBlock(cfg, last=i == cfg.depth - 1) for i in range(cfg.depth))
+
+    def set_uncond_buffers(self, buffers):
+        """Set ``uncond_y`` / ``uncond_c`` (from ``load_uncond_buffers``) as
+        buffers that move and cast with the module but stay out of its
+        state dict, as they stay out of a reference checkpoint."""
+        for name, t in buffers.items():
+            self.register_buffer(name, t.to(self.t_embedder.mlp[0].weight.device),
+                                 persistent=False)
+
+
+def load_uncond_buffers(cfg: MMDiTConfig):
+    """The CFG unconditional buffers the config names: {'uncond_y': ...,
+    'uncond_c': ...} for each of ``uncond_y_file`` / ``uncond_c_file`` that
+    exists, read with ``torch.load(weights_only=True)`` onto the CPU in
+    fp32 (an empty dict when neither does: the unconditional branch then
+    takes no pooled y and zero context)."""
+    out = {}
+    for name, path in (("uncond_y", cfg.uncond_y_file), ("uncond_c", cfg.uncond_c_file)):
+        if path and os.path.exists(path):
+            out[name] = torch.load(path, map_location="cpu", weights_only=True).float()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,18 +242,30 @@ def _qkv_split(p: DismantledBlock, cfg: MMDiTConfig, x):
     if cfg.qk_norm == "rms":
         q = rms_norm(q, p.attn.ln_q.weight)
         k = rms_norm(k, p.attn.ln_k.weight)
+    elif cfg.qk_norm == "ln":
+        q = layer_norm(q, p.attn.ln_q.weight, p.attn.ln_q.bias)
+        k = layer_norm(k, p.attn.ln_k.weight, p.attn.ln_k.bias)
     return q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
 def dismantled_pre_attention(p: DismantledBlock, cfg: MMDiTConfig, x, c,
                              pos_mods=None, pre_only=False):
-    """pos_mods: precomputed [K, 6*hidden] context modulations when the block
-    runs in 'pos_emb' mode (else None -> 't_emb' mode driven by c).
+    """pos_mods: the context block's row of the precomputed table, in
+    'pos_emb' mode the modulations [L, 6*hidden], in 'pos_t_emb' mode the
+    per-position embeddings [L, hidden], which are added to the per-sample
+    conditioning c before the adaLN (modulations [B, L, 6*hidden]); None
+    for the 't_emb' mode and the x stream (driven by c alone).
     Returns (q, k, v), intermediates."""
     if pre_only:
         shift_msa, scale_msa = torch.chunk(_adaln(p, c), 2, dim=-1)
         qkv = _qkv_split(p, cfg, modulate(layer_norm(x), shift_msa, scale_msa, 1))
         return qkv, None
+    if pos_mods is not None and cfg.time_adaln == "pos_t_emb":
+        mods = _adaln(p, c[:, None, :] + pos_mods[None, :x.shape[1]])
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
+            torch.chunk(mods, 6, dim=-1)
+        qkv = _qkv_split(p, cfg, modulate(layer_norm(x), shift_msa, scale_msa))
+        return qkv, (x, gate_msa, shift_mlp, scale_mlp, gate_mlp, None)
     if pos_mods is not None:
         mods, axis = pos_mods, 0
     else:
@@ -233,11 +277,13 @@ def dismantled_pre_attention(p: DismantledBlock, cfg: MMDiTConfig, x, c,
 
 
 def dismantled_post_attention(p: DismantledBlock, attn_out, inter):
-    """attn_out: [B, L, C]."""
+    """attn_out: [B, L, C]. axis None: the mods are already [B, L, C]."""
     x, gate_msa, shift_mlp, scale_mlp, gate_mlp, axis = inter
-    x = x + gate_msa.unsqueeze(axis) * linear_apply(p.attn.proj, attn_out)
-    x = x + gate_mlp.unsqueeze(axis) * mlp_apply(
-        p.mlp, modulate(layer_norm(x), shift_mlp, scale_mlp, axis))
+    if axis is not None:
+        gate_msa, gate_mlp = gate_msa.unsqueeze(axis), gate_mlp.unsqueeze(axis)
+    x = x + gate_msa * linear_apply(p.attn.proj, attn_out)
+    x = x + gate_mlp * mlp_apply(
+        p.mlp, modulate(layer_norm(x), shift_mlp, scale_mlp, 0 if axis is None else axis))
     return x
 
 
@@ -274,10 +320,13 @@ def joint_block_apply(bp: JointBlock, cfg: MMDiTConfig, context, x, c,
 
 
 def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
-    """Context adaLN table [depth-1, K, 6*hidden], a function of the weights
-    only; hoisting it removes t_embedder + adaLN of every context block from
-    the 50-step decode loop."""
-    if cfg.time_adaln != "pos_emb":
+    """Context adaLN table over register_length + K positions, a function of
+    the weights only: in 'pos_emb' mode the modulations [depth-1, L,
+    6*hidden] (hoisting them removes t_embedder + adaLN of every context
+    block from the 50-step decode loop), in 'pos_t_emb' mode the
+    per-position embeddings [depth-1, L, hidden] (the adaLN then depends on
+    the per-sample conditioning); None in 't_emb' mode."""
+    if cfg.time_adaln not in ("pos_emb", "pos_t_emb"):
         return None
     L = length if length is not None else cfg.register_length + cfg.K
     base = 1000 + 8 * np.arange(L) if cfg.diti_positions else np.arange(L)
@@ -286,7 +335,7 @@ def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
     mods = []
     for bp in list(params.joint_blocks)[:-1]:
         t_emb = timestep_embedder_apply(bp.context_block.t_embedder, positions)
-        mods.append(_adaln(bp.context_block, t_emb))
+        mods.append(t_emb if cfg.time_adaln == "pos_t_emb" else _adaln(bp.context_block, t_emb))
     return torch.stack(mods)
 
 
@@ -375,9 +424,7 @@ def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
         mask = mask & ~drop[:, None]
     if y is not None:
         c = c + y
-    if cfg.register_length > 0:
-        context = torch.cat(
-            [params.register.to(context.dtype).expand(B, -1, -1), context], dim=1)
+    context = _with_registers(params, cfg, context)
 
     key_mask = build_decode_key_mask(mask, xt.shape[1], cfg.register_length)
     ctx_key_mask = None if context_see_xt else build_decode_key_mask(
@@ -389,17 +436,114 @@ def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
 
 
-def mmdit_cfg_inference(*args, **kwargs):
-    raise NotImplementedError(
-        "mmdit_cfg_inference (the unconditional branch with register tokens) "
-        "is not ported yet: ROADMAP.md queue item 'remaining encoder modes / "
-        "multires / DiT / DDPM / text encoders'")
+def _pool_y(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask):
+    """sd3_cond_pooling: the pooled conditioning [B, hidden] through
+    ``y_embedder``, or None without pooling. 'last' takes each row's last
+    active token. 'mean' keeps the reference's quirk: the sum runs over
+    every token while the divisor counts the active ones, a true masked
+    mean only when the hidden states are already zero where the mask is."""
+    if cfg.sd3_cond_pooling == "last":
+        last = torch.sum(mask, dim=-1).long() - 1
+        pooled = encoder_hidden_states[torch.arange(mask.shape[0], device=mask.device), last]
+    elif cfg.sd3_cond_pooling == "mean":
+        pooled = (torch.sum(encoder_hidden_states, dim=1)
+                  / torch.sum(mask, dim=-1, keepdim=True).to(encoder_hidden_states.dtype))
+    else:
+        return None
+    h = linear_apply(params.y_embedder.mlp[0], pooled)
+    return linear_apply(params.y_embedder.mlp[2], F.silu(h))
 
 
-def mmdit_cfg_batched(*args, **kwargs):
-    raise NotImplementedError(
-        "mmdit_cfg_batched is not ported yet: ROADMAP.md queue item "
-        "'remaining encoder modes / multires / DiT / DDPM / text encoders'")
+def _timestep_int(params: MMDiT, t, dtype):
+    """The unconditional branch's conditioning: the embedding of the
+    integer timesteps clip(floor(1000 t), 0, 999)."""
+    ti = torch.clamp(torch.floor(t * 1000.0), 0, 999).to(torch.int32)
+    return timestep_embedder_apply(params.t_embedder, ti).to(dtype)
+
+
+def _uncond_c(params: MMDiT, cfg: MMDiTConfig, t, dtype):
+    """The conditioning of an unconditional branch without context: the
+    integer timesteps' embedding, plus ``uncond_y`` under pooling when it
+    is loaded."""
+    c = _timestep_int(params, t, dtype)
+    uy = getattr(params, "uncond_y", None)
+    if cfg.sd3_cond_pooling and uy is not None:
+        c = c + uy.to(c.dtype)
+    return c
+
+
+def _with_registers(params: MMDiT, cfg: MMDiTConfig, context):
+    if cfg.register_length == 0:
+        return context
+    B = context.shape[0]
+    return torch.cat([params.register.to(context.dtype).expand(B, -1, -1), context], dim=1)
+
+
+def mmdit_cfg_inference(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
+                        mask=None, ctx_mods=None):
+    """The reference's ``cfg_inference``, the unconditional CFG branch that
+    keeps the context stream: with encoder_hidden_states None the context
+    is zeros and ``uncond_y`` joins the conditioning under pooling; otherwise the embedded context,
+    without ``context_pos_embed``, and its pooled y. Integer timesteps
+    floor(1000 t). Register tokens are prepended and their keys stay
+    active, so this is the branch for a decoder with registers. mask: [B, L]
+    over the context rows (all active when None). Returns the NHWC
+    velocity field."""
+    B = x.shape[0]
+    xt, gh, gw = _embed_x(params, cfg, x)
+    if encoder_hidden_states is None:
+        c = _uncond_c(params, cfg, t, xt.dtype)
+        context = torch.zeros((B, cfg.K, cfg.hidden_size), dtype=xt.dtype, device=x.device)
+    else:
+        c = _timestep_int(params, t, xt.dtype)
+        if cfg.sd3_cond_pooling:
+            pool_mask = mask if mask is not None else torch.ones(
+                encoder_hidden_states.shape[:2], dtype=torch.bool, device=x.device)
+            c = c + _pool_y(params, cfg, encoder_hidden_states, pool_mask).to(c.dtype)
+        context = linear_apply(params.context_embedder, encoder_hidden_states).to(xt.dtype)
+    if mask is None:
+        mask = torch.ones((B, context.shape[1]), dtype=torch.bool, device=x.device)
+    context = _with_registers(params, cfg, context)
+    if ctx_mods is None:
+        ctx_mods = precompute_context_mods(params, cfg)
+    if ctx_mods is not None and ctx_mods.shape[1] != context.shape[1]:
+        ctx_mods = ctx_mods[:, :context.shape[1]]
+    key_mask = build_decode_key_mask(mask, xt.shape[1], cfg.register_length)
+    out = _trunk(params, cfg, context, xt, c, ctx_mods, key_mask=key_mask)
+    return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
+
+
+def mmdit_cfg_batched(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states, mask,
+                      ctx_mods=None):
+    """Both CFG branches in one trunk over a 2B batch: rows [0, B) are the
+    conditional pass (``mmdit_apply`` with context_see_xt, which never
+    pools), rows [B, 2B) the unconditional one (``mmdit_cfg_inference``
+    with every context key masked: zero context, or a renderer's
+    ``uncond_c``, integer timesteps, ``uncond_y`` under pooling). The
+    branches differ only in data, so each layer's weights are read once a
+    step. No register tokens (the unconditional branch would need them
+    active). Returns (v_cond, v_uncond)."""
+    if cfg.register_length != 0:
+        raise ValueError("mmdit_cfg_batched takes no register tokens: use "
+                         "mmdit_apply and mmdit_cfg_inference")
+    B = x.shape[0]
+    xt, gh, gw = _embed_x(params, cfg, x)
+    c_c = timestep_embedder_apply(params.t_embedder, t * 1000.0).to(xt.dtype)
+    c_u = _uncond_c(params, cfg, t, xt.dtype)
+    Lc = encoder_hidden_states.shape[1]
+    ctx_c = linear_apply(params.context_embedder, encoder_hidden_states)
+    ctx_c = (ctx_c + params.context_pos_embed[:, :Lc]).to(xt.dtype)
+    ctx_u = torch.zeros((B, Lc, cfg.hidden_size), dtype=xt.dtype, device=x.device)
+    mask2 = torch.cat([mask.bool(), torch.zeros_like(mask, dtype=torch.bool)], dim=0)
+    key_mask = build_decode_key_mask(mask2, xt.shape[1])
+    if ctx_mods is None:
+        ctx_mods = precompute_context_mods(params, cfg)
+    if ctx_mods is not None and ctx_mods.shape[1] != Lc:
+        ctx_mods = ctx_mods[:, :Lc]
+    out = _trunk(params, cfg, torch.cat([ctx_c, ctx_u]), torch.cat([xt, xt]),
+                 torch.cat([c_c, c_u]), ctx_mods, key_mask=key_mask)
+    v = unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
+    return v[:B], v[B:]
 
 
 def mmdit_uncond_xonly(params: MMDiT, cfg: MMDiTConfig, x, t):
@@ -407,22 +551,53 @@ def mmdit_uncond_xonly(params: MMDiT, cfg: MMDiTConfig, x, t):
     sampler's uncond call is fully masked, masked context keys get weight
     exactly 0, and the final layer reads only the x stream, so only the
     x blocks run (sequence 768 -> 256 at 256 px). Integer timesteps
-    clip(floor(1000 t), 0, 999), as the reference's cfg_inference."""
+    clip(floor(1000 t), 0, 999), and ``uncond_y`` under pooling, as the
+    reference's cfg_inference."""
     if cfg.register_length != 0:
-        raise NotImplementedError(
+        raise ValueError(
             "register tokens are unmasked context keys, so the x-only branch "
-            "is invalid; mmdit_cfg_inference is not ported yet: ROADMAP.md "
-            "queue item 'remaining encoder modes / multires / DiT / DDPM / "
-            "text encoders'")
+            "is invalid: use mmdit_cfg_inference")
     xt, gh, gw = _embed_x(params, cfg, x)
-    ti = torch.clamp(torch.floor(t * 1000.0), 0, 999).to(torch.int32)
-    c = timestep_embedder_apply(params.t_embedder, ti).to(xt.dtype)
+    c = _uncond_c(params, cfg, t, xt.dtype)
     for bp in params.joint_blocks:
         qkv, inter = dismantled_pre_attention(bp.x_block, cfg, xt, c)
         xt = dismantled_post_attention(bp.x_block, _merge_heads(serving_attention(*qkv)),
                                        inter)
     out = final_layer_apply(params.final_layer, xt, c)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)
+
+
+def renderdit_apply(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask=None,
+                    x_mask=None, hw=(32, 32), ctx_mods=None):
+    """The reference's RenderDiT (the earlier standalone renderer): the x
+    stream is the learned mask token over a fixed 16 x 16 grid at t = 1000,
+    the conditioning takes the pooled y under pooling, and every row sees
+    the same keys [registers | tokens under mask | mask tokens under
+    x_mask] (the context rows see the mask-token stream, unlike
+    MMDiT_Renderer's): one attention kernel call a block.
+    encoder_hidden_states: [B, K, encoder_hidden_size]; mask: [B, K] bool;
+    hw: the latent's height and width. Returns NHWC latents."""
+    B = encoder_hidden_states.shape[0]
+    grid = 16    # fixed in the reference
+    tok = params.mask_token
+    x = tok.expand(B, grid * grid, cfg.hidden_size) + params.positional_embedding.to(tok.dtype)
+    t1000 = torch.full((B,), 1000.0, dtype=torch.float32, device=x.device)
+    c = timestep_embedder_apply(params.t_embedder, t1000).to(x.dtype)
+    if mask is None:
+        mask = torch.ones((B, cfg.K), dtype=torch.bool, device=x.device)
+    if cfg.sd3_cond_pooling:
+        c = c + _pool_y(params, cfg, encoder_hidden_states, mask).to(c.dtype)
+    context = linear_apply(params.context_embedder, encoder_hidden_states)
+    context = _with_registers(params, cfg, (context + params.context_pos_embed).to(x.dtype))
+    if x_mask is None:
+        x_mask = torch.ones((B, x.shape[1]), dtype=torch.bool, device=x.device)
+    key_mask = torch.cat([build_decode_key_mask(mask, 0, cfg.register_length),
+                          x_mask.bool()], dim=1)
+    if ctx_mods is None:
+        ctx_mods = precompute_context_mods(params, cfg)
+    out = _trunk(params, cfg, context, x, c, ctx_mods, key_mask=key_mask)
+    p = cfg.patch_size
+    return unpatchify(out, p, cfg.out_ch, hw[0] // p, hw[1] // p)
 
 
 def renderer_apply(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask=None,
@@ -452,10 +627,7 @@ def renderer_apply(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask=
     t1000 = torch.full((B,), 1000.0, dtype=torch.float32, device=x.device)
     c = timestep_embedder_apply(params.t_embedder, t1000).to(x.dtype)
     context = linear_apply(params.context_embedder, encoder_hidden_states)
-    context = (context + params.context_pos_embed).to(x.dtype)
-    if cfg.register_length > 0:
-        context = torch.cat(
-            [params.register.to(context.dtype).expand(B, -1, -1), context], dim=1)
+    context = _with_registers(params, cfg, (context + params.context_pos_embed).to(x.dtype))
     if mask is None:
         mask = torch.ones((B, cfg.K), dtype=torch.bool, device=x.device)
     ctx_key_mask = build_decode_key_mask(mask, 0, cfg.register_length)

@@ -22,7 +22,7 @@ from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.models.diti import make_diti
 from selftoktokenizer_tpu_torch.models.encoder import (
     EncoderConfig, QformerEncoder, _embed_patches, encoder_apply, get_encoder_mask,
-    get_encoder_outs)
+    get_encoder_outs, patches_per_token)
 from selftoktokenizer_tpu_torch.models.mmdit import (
     MMDiT, MMDiTConfig, mmdit_apply, renderer_apply)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm
@@ -122,8 +122,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
     renderer's mask token and positional embedding, an l2-normalised
     codebook, norm weights one, the sincos position tables as built.
 
-    The reference zero-initialises every adaLN projection and every bias,
-    which closes every attention gate: the attention output then never
+    The reference zero-initialises every adaLN projection, every bias and
+    the zero-init encoder's ``gate`` (tanh(0) closes its image part), which
+    closes every attention gate: the attention output then never
     reaches the result. ``zero_init_std > 0`` fills those leaves (and the
     MMDiT's learned pos_embed) with normals of that std instead, so a run on
     random weights exercises the whole graph.
@@ -147,7 +148,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
             t.normal_(std=t.shape[-1] ** -0.5, generator=generator)   # the renderer's
         elif leaf == "pos_embed":
             zero = True
-        elif "adaLN_modulation" in parent:
+        elif "adaLN_modulation" in parent or leaf == "gate":
             zero = True
         elif leaf == "bias":
             zero = True
@@ -257,7 +258,7 @@ def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_st
     t = flow_mod.shift_t(t, shift)
 
     enc = tok.encoder
-    outs, _ = pre_vq_outs(enc, cfg, x)
+    outs, x_emb = pre_vq_outs(enc, cfg, x)
     if vq_injected is not None:
         outs_q, quan_loss, vq_logs = vq_mod.vq_microbatch_surrogate(
             enc.quantizer, outs, vq_injected, cfg.quantizer)
@@ -272,7 +273,10 @@ def tokenizer_loss(tok: ImageTokenizer, cfg: TokenizerConfig, x, rng=None, vq_st
     if cfg.encoder.post_norm:
         outs_q = layer_norm(outs_q, enc.final_layer_norm3.weight, enc.final_layer_norm3.bias)
 
-    enc_mask = get_encoder_mask(cfg.encoder, k_batch.to(dev))
+    # a plain-ViT encoder's K tokens are groups of patches: the mask repeats
+    # per patch
+    enc_mask = get_encoder_mask(cfg.encoder, k_batch.to(dev),
+                                patches_per_token(cfg.encoder, x_emb))
     ehs = outs_q * enc_mask[..., None].to(outs_q.dtype)
 
     def model_fn(x_t, tt):

@@ -1,7 +1,6 @@
 """Model registries: named encoder / decoder variants (counterpart of the
 reference ``models/zoo.py``). The registry lists every named variant; the
-encoder modes that are not ported yet raise when a module is built from
-their config, not here.
+multi-resolution encoder, not ported yet, raises here.
 """
 
 from __future__ import annotations
@@ -69,7 +68,7 @@ def build_encoder_config(name, K, input_size, encoder_hidden_size, in_channels,
     if spec.pop("multires", None):
         raise NotImplementedError(
             f"the multi-resolution encoder {name!r} is not ported yet: ROADMAP.md "
-            "queue item 'remaining encoder modes / multires / DiT / DDPM / text encoders'")
+            "queue item 'Multires / DiT / DDPM / text encoders'")
     max_k = spec.pop("max_K", None)
     if max_k is not None:
         assert K <= max_k, f"{name} supports K up to {max_k}"

@@ -19,9 +19,14 @@ attention, exact-fp32 VQ kernel, and TF32 switched off for matmuls and for
 cuDNN convolutions (cuDNN's default is on). ``'high'``: the same fp32 trunk
 with TF32 switched on for its matmuls and convolutions, inside the call only
 (Hopper has no 3-pass bf16 tier; TF32 is the nearest one). ``vq_argmax``
-keeps its ids exact at every tier. ``'default'``: bf16 trunk, query
-attention through the CUDA attention kernel. Decode runs in ``decode_dtype``
-(bf16 or fp32) with the joint attention through the kernel in both.
+keeps its ids exact at every tier. ``'default'``: for the ``dual`` encoder a
+bf16 trunk, its unmasked unidirectional query attention through the CUDA
+attention kernel; the other encoder modes keep the fp32 trunk under the
+global TF32 settings, as the reference does. Decode runs in
+``decode_dtype`` (bf16 or fp32) with the joint attention through the kernel
+in both; under CFG the unconditional branch drops the context stream
+(``mmdit_uncond_xonly``), or, for a decoder with register tokens, runs it
+with every context key masked (``mmdit_cfg_inference``).
 ``decode_dtype='int8'`` keeps bf16 activations and swaps the decoder's
 projections for int8 weights (``ops.q8_matmul.quantize_model_``, after the
 cast to bf16, as the reference quantizes), which run through the W8A8
@@ -37,7 +42,8 @@ from selftoktokenizer_tpu_torch.models import flow as flow_mod
 from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.models.encoder import encoder_apply, encoder_margins
 from selftoktokenizer_tpu_torch.models.mmdit import (
-    mmdit_apply, mmdit_uncond_xonly, precompute_context_mods, renderer_apply)
+    load_uncond_buffers, mmdit_apply, mmdit_cfg_inference, mmdit_uncond_xonly,
+    precompute_context_mods, renderer_apply)
 from selftoktokenizer_tpu_torch.models.tokenizer import (
     ImageTokenizer, TokenizerConfig, init_weights_, tokenizer_config_from_params,
     tokenizer_from_state_dict)
@@ -151,14 +157,17 @@ class SelftokPipeline:
         """Install modules (moved to the pipeline's device). The decoder's
         context adaLN table is computed here, in fp32, before the decoder is
         cast to the decode dtype in place: the pipeline keeps no fp32 copy
-        of the 2B-parameter decoder. Under int8 the bf16 decoder's eligible
-        linears are then quantized in place."""
+        of the 2B-parameter decoder. The unconditional buffers the decoder
+        config names (``uncond_y_file`` / ``uncond_c_file``) are set on it
+        before the cast. Under int8 the bf16 decoder's eligible linears are
+        then quantized in place."""
         if tokenizer is not None:
             tokenizer = tokenizer.to(self.device).requires_grad_(False)
             self.encoder = tokenizer.encoder
             self.model = tokenizer.model
             self._ctx_mods = None
             if self.model is not None:
+                self.model.set_uncond_buffers(load_uncond_buffers(self.tcfg.decoder))
                 with torch.no_grad():
                     self._ctx_mods = precompute_context_mods(
                         self.model.float(), self.tcfg.decoder)
@@ -186,7 +195,7 @@ class SelftokPipeline:
         encode path in use."""
         with routing.kernel_route(kernels):
             x0 = self._images_to_latents(self._to_device(images))
-            serving = self.encode_precision == "default"
+            serving = self._serving(self.encode_precision)
             with fp32_exact(_EXACT[self.encode_precision]):
                 return encoder_margins(
                     self.encoder, self.tcfg.encoder, x0,
@@ -254,15 +263,19 @@ class SelftokPipeline:
         prec = precision or self.encode_precision
         _check_precision(prec)
         x0 = self._images_to_latents(images)
-        # 'default' is the bf16 serving path: bf16 trunk, kernel attention,
-        # fast VQ scores. 'highest' keeps fp32 activations and plain fp32
-        # attention, with TF32 off; 'high' the same with TF32 on.
-        serving = prec == "default"
+        # 'default' is the bf16 serving path of the dual encoder: bf16 trunk,
+        # kernel attention, fast VQ scores. 'highest' keeps fp32 activations
+        # and plain fp32 attention, with TF32 off; 'high' the same with TF32
+        # on. The other modes take no bf16 trunk at 'default'.
+        serving = self._serving(prec)
         with fp32_exact(_EXACT[prec]):
             return encoder_apply(
                 self.encoder, self.tcfg.encoder, x0,
                 trunk_dtype=torch.bfloat16 if serving else None,
                 fast_attn=serving)
+
+    def _serving(self, prec):
+        return prec == "default" and self.tcfg.encoder.qformer_mode == "dual"
 
     def _tokens_to_context(self, ids):
         outs_q = vq_mod.get_output_from_indices(self.encoder.quantizer, ids)
@@ -302,11 +315,17 @@ class SelftokPipeline:
             return v.float()
 
         uncond_fn = None
-        if cs != 1.0:
+        if cs != 1.0 and dcfg.register_length == 0:
             # the sampler's uncond branch is fully masked, so the context
             # stream is dead: run the x-only trunk
             def uncond_fn(x, t, e, mask):
                 return mmdit_uncond_xonly(self.model, dcfg, x.to(dd), t).float()
+        elif cs != 1.0:
+            # register keys stay active: the full unconditional pass
+            def uncond_fn(x, t, e, mask):
+                return mmdit_cfg_inference(self.model, dcfg, x.to(dd), t, None,
+                                           mask=torch.zeros_like(mask),
+                                           ctx_mods=mods).float()
 
         segments = self._decode_segments()
         if segments is None or cs != 1.0 or not self.cond_vary \

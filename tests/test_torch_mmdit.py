@@ -2,6 +2,8 @@
 the CPU in fp32, weights non-zero everywhere (adaLN included: with the
 init's zero gates the attention output would never reach the result)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -97,7 +99,15 @@ def test_build_decode_key_mask(mm_pair):
 
 
 def test_out_of_slice_entry_points_raise(mm_pair):
+    """mmdit_cfg_inference and mmdit_cfg_batched are ported (held against
+    JAX in tests/test_torch_zoo_mmdit.py): they run here. What raises is a
+    register decoder in the two branches that cannot take registers."""
     _, _, tcfg, model, x, ehs, t = mm_pair
-    for fn in (t_mm.mmdit_cfg_inference, t_mm.mmdit_cfg_batched):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(model, tcfg, x, t, ehs)
+    x, ehs, t = torch.from_numpy(x), torch.from_numpy(ehs), torch.from_numpy(t)
+    mask = torch.ones(ehs.shape[:2], dtype=torch.bool)
+    assert t_mm.mmdit_cfg_inference(model, tcfg, x, t, ehs).shape == x.shape
+    assert all(v.shape == x.shape for v in t_mm.mmdit_cfg_batched(model, tcfg, x, t, ehs, mask))
+    reg = dataclasses.replace(tcfg, register_length=2)
+    for fn, args in ((t_mm.mmdit_cfg_batched, (ehs, mask)), (t_mm.mmdit_uncond_xonly, ())):
+        with pytest.raises(ValueError, match="register"):
+            fn(model, reg, x, t, *args)

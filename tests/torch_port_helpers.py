@@ -93,6 +93,24 @@ def mmdit_tables(cfg, prefix=()):
             sincos_1d(cfg.context_dim, base.astype(np.float32))[None]}
 
 
+def add_ln_qk_norm(tree, cfg, seed):
+    """Add the per-head LayerNorm leaves of qk-norm 'ln' ({'scale', 'bias'}
+    under 'ln_q' / 'ln_k', seeded) to every dismantled block of an MMDiT
+    tree, in place: the JAX package's ``_qkv_split`` reads them, but its
+    ``mmdit_init`` makes them only for 'rms'."""
+    rng = np.random.default_rng(seed + 500)
+    hd = cfg.hidden_size // cfg.num_heads
+
+    def leaves(lead):
+        return {"scale": 1.0 + 0.1 * rng.standard_normal(lead + (hd,)).astype(np.float32),
+                "bias": 0.02 * rng.standard_normal(lead + (hd,)).astype(np.float32)}
+
+    for group, lead in (("joint_blocks", (cfg.depth - 1,)), ("last_block", ())):
+        for blk in tree[group].values():
+            blk["ln_q"], blk["ln_k"] = leaves(lead), leaves(lead)
+    return tree
+
+
 def assert_images_close(got, want):
     """The VAE decodes in bf16 on both sides, and XLA and PyTorch round at
     different places: each side's bf16 image lies up to 0.035 from its own
@@ -102,14 +120,17 @@ def assert_images_close(got, want):
     assert np.quantile(d, 0.999) <= 5e-2 and d.max() <= 1e-1, (np.quantile(d, 0.999), d.max())
 
 
-def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
+def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32, datasize=64,
+                  tree_hook=None):
     """(jax pipeline, port pipeline) with one set of seeded weights and a
     narrow VAE (ch=32) on both sides. decode_dtype: torch.float32,
     torch.bfloat16 or 'int8'. The JAX pipeline casts and quantizes its
     decoder in its constructor, before the weights are swapped in here, so
-    the cast to bf16 and ``quantize_params_tree`` are repeated on the
-    swapped-in tree, after the context adaLN table is computed in fp32 (the
-    order of both constructors)."""
+    the unconditional buffers its config names are loaded again, and the
+    cast to bf16 and ``quantize_params_tree`` are repeated on the swapped-in
+    tree, after the context adaLN table is computed in fp32 (the order of
+    both constructors). tree_hook(tree, tokenizer_config) may edit the
+    seeded tree in place before either side takes it."""
     import functools
     from unittest import mock
 
@@ -117,6 +138,7 @@ def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
     import jax.numpy as jnp
 
     import selftoktokenizer_tpu.pipeline.pipeline as j_pipeline_mod
+    from selftoktokenizer_tpu.core import convert as j_cv
     from selftoktokenizer_tpu.core.config import AttrDict as JAttrDict
     from selftoktokenizer_tpu.models import vae as j_vae
     from selftoktokenizer_tpu.models.mmdit import precompute_context_mods
@@ -141,7 +163,7 @@ def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
                            functools.partial(j_vae.VAEConfig, ch=32)), \
             mock.patch.object(j_pipeline_mod, "tokenizer_init", zeros_like_init(tokenizer_init)), \
             mock.patch.object(j_pipeline_mod, "vae_init", zeros_like_init(j_vae.vae_init)):
-        jpipe = JaxPipeline(JAttrDict(cfg_dict), datasize=64, steps=steps,
+        jpipe = JaxPipeline(JAttrDict(cfg_dict), datasize=datasize, steps=steps,
                             decode_dtype={torch.float32: jnp.float32,
                                           torch.bfloat16: jnp.bfloat16}.get(decode_dtype, decode_dtype))
     assert jpipe.vae_cfg.ch == 32
@@ -150,8 +172,11 @@ def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
     tok_tree = seeded_tree(
         lambda k: tokenizer_init(k, tc), seed + 1,
         {**encoder_tables(tc.encoder, ("encoder",)), **mmdit_tables(tc.decoder, ("model",))})
+    if tree_hook is not None:
+        tree_hook(tok_tree, tc)
     jpipe.vae_params = jax_tree(vae_tree)
     jpipe.params = jax_tree(tok_tree)
+    jpipe.params["model"].update(jax_tree(j_cv.load_uncond_buffers(tc.decoder)))
     jpipe._ctx_mods = precompute_context_mods(jpipe.params["model"], tc.decoder)
     if decode_dtype != torch.float32:
         jpipe.params["model"] = jax.tree_util.tree_map(
@@ -159,17 +184,17 @@ def pipeline_pair(cfg_dict, steps, seed, decode_dtype=torch.float32):
     if decode_dtype == "int8":
         jpipe.params["model"] = quantize_params_tree(jpipe.params["model"])
 
-    tpipe = SelftokPipeline(AttrDict(cfg_dict), datasize=64, steps=steps, device="cpu",
+    tpipe = SelftokPipeline(AttrDict(cfg_dict), datasize=datasize, steps=steps, device="cpu",
                             decode_dtype=decode_dtype)
     tpipe.set_weights(convert.tokenizer_from_jax_tree(tok_tree, tpipe.tcfg),
                       convert.vae_from_jax_tree(vae_tree, VAEConfig(ch=32)))
     return jpipe, tpipe
 
 
-def jax_decode(jpipe, ids, noise, cfg_scale=None):
+def jax_decode(jpipe, ids, noise, cfg_scale=None, images=True):
     """(latents, images) of the JAX pipeline for given start noise: its
     jitted decode with the final VAE step taken off, then its own
-    decode_latents."""
+    decode_latents (images None with images=False)."""
     import jax
     import jax.numpy as jnp
 
@@ -182,7 +207,7 @@ def jax_decode(jpipe, ids, noise, cfg_scale=None):
         lat = jax.block_until_ready(lat)
     finally:
         jpipe._latents_to_images = keep
-    return to_np(lat), to_np(jpipe.decode_latents(lat))
+    return to_np(lat), to_np(jpipe.decode_latents(lat)) if images else None
 
 
 def jax_render(jpipe, ids):
