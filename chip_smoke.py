@@ -15,8 +15,13 @@ of the model zoo at full width: seven named encoders at batch 8 (each
 interaction mode, K = 24 and K = 1024), the variant decoder (qk-norm 'ln',
 'pos_t_emb', mean pooling; bf16 and int8) with one sampler step of the
 batched CFG trunk, a decoder with register tokens at cfg 2.0 and
-RenderDiT_XL, each against the forced plain versions. Each path runs with
-every launch count set to 0 just before it and read just after.
+RenderDiT_XL, each against the forced plain versions. Phase "families" then
+drives the sixth slice's models at full width in fp32: the multi-resolution
+encoder (its vq_argmax ids against the plain run), the multi-resolution
+MMDiT (bf16 against fp32), the multi-resolution tokenizer's loss and
+gradients (against the plain run), DiT-XL/2 with the DDPM loss and samplers,
+and the SD3 text encoders. Each path runs with every launch count set to 0
+just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -27,8 +32,9 @@ It exits non-zero when no GPU is available or when any phase fails. The
 last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
-``--only kernels`` stops after the kernel phase, ``--only train`` and
-``--only zoo`` run that phase alone (no kernel line, no final line); ``--ptxas`` prints the
+``--only kernels`` stops after the kernel phase, ``--only train``,
+``--only zoo`` and ``--only families`` run that phase alone (no kernel
+line, no final line); ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
 torch.profiler pass over one warm bf16 decode, one warm int8 decode, one
 extra tokenizer and renderer train step and the zoo's two forms of a CFG
@@ -709,6 +715,9 @@ def kernel_phase():
         ("cfg_batched_2b_bf16", 4, 24, 768, 768, 64, bf, "cfg_batched", True),
         ("renderdit_bf16", 8, 24, 768, 768, 64, bf, "renderdit", True),
         ("encoder_query_k1024_bf16", 8, 8, 1024, 1280, 64, bf, None, True),
+        # the multi-resolution tokenizer's loss at batch 4, fp32: 2 x 512
+        # interleaved context keys (a prefix active) and 256 x keys
+        ("multi_tokenizer_joint_fp32_masked", 4, 24, 1280, 1280, 64, f32, "prefix", True),
         # 512 px: the decode joint is 512 context + 1024 x rows; 4608 is the
         # longest bucket of the JAX package's 512 px notes (4096 x rows)
         ("decode_joint_512px_bf16_masked", 2, 24, 1536, 1536, 64, bf, "prefix1024", True),
@@ -740,6 +749,8 @@ def kernel_phase():
         ("grad_train_joint_fp32_masked", 4, 24, 768, 768, 64, f32, "prefix", "dense", True),
         ("grad_train_renderer_context_fp32", 4, 24, 512, 512, 64, f32, "ones", "qkv", True),
         ("grad_train_renderer_x_fp32", 4, 24, 256, 768, 64, f32, "ones", "dense", True),
+        ("grad_multi_tokenizer_joint_fp32_masked", 4, 24, 1280, 1280, 64, f32, "prefix", "dense",
+         True),
         ("grad_ragged_bf16", 2, 3, 200, 333, 64, bf, "random", "dense", False),
         ("grad_fully_masked_row_fp32", 2, 4, 128, 192, 64, f32, "full_row", "dense", False),
         ("grad_head_dim_128_fp32", 1, 4, 130, 257, 128, f32, "random", "dense", False),
@@ -1563,6 +1574,388 @@ def zoo_phase(card, do_profile=False):
     return by_path
 
 
+# -------------------------------------------------------------- families ---
+
+FAMILIES_B = {"multires_encoder": 8, "multires_mmdit": 2, "multi_tokenizer": 4, "dit_train": 8}
+# the multi-resolution MMDiT's bf16 forward against its fp32 forward, relative
+# to the fp32 velocity's scale: the bound of the decodes' bf16 paths
+MULTIRES_BF16_TOL = 5e-2
+
+
+def _flagship_params(**changes):
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+
+    p = load_config(FLAGSHIP_CONFIG).to_dict()["tokenizer"]["params"]
+    p.update(changes)
+    return p
+
+
+def _seeded_module(module, seed):
+    from selftoktokenizer_tpu_torch.models.tokenizer import init_weights_
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    init_weights_(module, gen, zero_init_std=0.02)
+    return module
+
+
+def _n_params(m):
+    return sum(p.numel() for p in m.parameters())
+
+
+def multires_encoder_path(card):
+    """Enc-Qformer-Multi-Res-Uni-XL/2 at 256 px (32 x 32 x 16 latents),
+    batch 8, fp32: K = 512 and low_res_K = 512, seeded token embeddings;
+    its ids against the forced plain run by the 1e-6 margin rule."""
+    from selftoktokenizer_tpu_torch.models import encoder as enc_mod
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+    from selftoktokenizer_tpu_torch.ops import routing
+
+    tcfg = tokenizer_config_from_params(_flagship_params(enc="Enc-Qformer-Multi-Res-Uni-XL/2"))
+    ec = tcfg.encoder
+    if (ec.depth, ec.query_dim, ec.K, ec.low_res_K, ec.codebook_size) != (16, 512, 512, 512, 32768):
+        raise RuntimeError("not the multi-resolution encoder's widths")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        enc = _seeded_module(enc_mod.QformerEncoderMultiRes(ec), 21).requires_grad_(False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    B = FAMILIES_B["multires_encoder"]
+    x = torch.randn((B, 32, 32, 16), generator=gen, device="cuda")
+    te = torch.randn((B, ec.low_res_K, ec.low_res_code_dim), generator=gen, device="cuda")
+    d = torch.full((B,), ec.K - 1, dtype=torch.int32, device="cuda")
+
+    def run():
+        return enc_mod.multires_encoder_apply(enc, ec, x, te, d=d)
+
+    reset_counts()
+    out, t_first = timed(run)
+    c = counts()
+    if c != (1, 0, 0, 0):
+        raise RuntimeError(f"multires encoder launch counts {c}, expected (1, 0, 0, 0)")
+    ids, outs = out[-1], out[1]
+    before = counts()
+    with routing.kernel_route("plain"):
+        ids_p = run()[-1]
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    margins = vq_mod.vq_margins(enc.quantizer, outs)[1]
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (B, ec.K) or int(ids.min()) < 0 \
+            or int(ids.max()) >= ec.codebook_size or not torch.isfinite(out[0]).all():
+        raise RuntimeError(f"multires encoder: bad ids {ids.dtype} {tuple(ids.shape)}")
+    diff = ids != ids_p
+    if int((diff & (margins >= VQ_MARGIN)).sum()) != 0:
+        raise RuntimeError("multires encoder: kernel ids differ from plain ids outside the margin")
+    w = warm(run, 3)
+    log(f"  multires encoder: {_n_params(enc) / 1e6:.1f} M parameters, ids {tuple(ids.shape)} "
+        f"(N = {ids.numel()} VQ rows), kernel vs plain differing {int(diff.sum())} (smallest "
+        f"margin {margins.min().item():.3g}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"encode multires Uni-XL/2 fp32: {B / w:.2f} images/s (batch {B}, {w * 1e3:.1f} ms warm, "
+        f"{t_first * 1e3:.1f} ms first call) on {card}")
+    del enc, out, outs
+    release()
+    return c
+
+
+def multires_mmdit_path(card):
+    """The multi-resolution MMDiT at MMDiT_XL widths (depth 24, hidden 1536,
+    with the low-res and rec blocks): a 256 px x (32 x 32), a 128 px low-res
+    latent (16 x 16, 64 rec tokens), K = K_low = 512, token and low-res
+    masks with keys off, context_see_xt and context_see_rec; fp32 then bf16
+    forwards at batch 2, the bf16 velocity within MULTIRES_BF16_TOL of the
+    fp32 one's scale. Plain sdpa under the full mask: no kernel."""
+    from selftoktokenizer_tpu_torch.models import mmdit as mm
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+
+    cfg = tokenizer_config_from_params(_flagship_params()).decoder
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with torch.device("cuda"):
+        model = _seeded_module(mm.MMDiT(cfg, multires=True), 23).requires_grad_(False)
+    n = _n_params(model)
+    if (cfg.depth, cfg.hidden_size, cfg.num_heads, cfg.K) != (24, 1536, 24, 512):
+        raise RuntimeError("not the MMDiT_XL widths")
+    log(f"  multires MMDiT_XL: {n / 1e9:.3f} B parameters, built in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    B = FAMILIES_B["multires_mmdit"]
+    x = torch.randn((B, 32, 32, 16), generator=gen, device="cuda")
+    low = torch.randn((B, 16, 16, 16), generator=gen, device="cuda")
+    ehs = torch.randn((B, 512, 16), generator=gen, device="cuda")
+    ehs_low = torch.randn((B, 512, 16), generator=gen, device="cuda")
+    t = torch.tensor([0.3, 0.8], device="cuda")
+    pos = torch.arange(512, device="cuda")[None]
+    mask = pos < torch.tensor([[200], [512]], device="cuda")
+    cl_mask = pos < torch.tensor([[100], [450]], device="cuda")
+
+    def run(dtype):
+        return mm.mmdit_multires_apply(model, cfg, x.to(dtype), t, ehs, ehs_low, low.to(dtype),
+                                       mask=mask, context_lowres_mask=cl_mask,
+                                       context_see_xt=True, context_see_rec=True)
+
+    reset_counts()
+    v32, t32_first = timed(lambda: run(torch.float32))
+    w32 = warm(lambda: run(torch.float32), 2)
+    peak32 = torch.cuda.max_memory_allocated()
+    model.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    v16, t16_first = timed(lambda: run(torch.bfloat16))
+    w16 = warm(lambda: run(torch.bfloat16), 2)
+    peak16 = torch.cuda.max_memory_allocated()
+    c = counts()
+    if c != (0, 0, 0, 0):
+        raise RuntimeError(f"multires MMDiT launch counts {c}: its attention is plain sdpa")
+    if tuple(v32.shape) != (B, 32, 32, 16) or v16.dtype != torch.bfloat16:
+        raise RuntimeError(f"multires MMDiT: bad output {tuple(v32.shape)} {v16.dtype}")
+    if not torch.isfinite(v32).all():
+        raise RuntimeError("multires MMDiT: non-finite fp32 velocity")
+    rel = latent_check("multires MMDiT bf16 velocity vs fp32", v16, v32, tol=MULTIRES_BF16_TOL)
+    log(f"forward multires MMDiT_XL (Lq 1280, Lk 1344): fp32 {w32 * 1e3:.1f} ms warm "
+        f"({t32_first * 1e3:.1f} first, peak {peak32 / 2**30:.2f} GiB), bf16 {w16 * 1e3:.1f} ms "
+        f"warm ({t16_first * 1e3:.1f} first, peak {peak16 / 2**30:.2f} GiB), bf16 vs fp32 "
+        f"{rel:.4g} of the scale, batch {B} on {card}")
+    del model, v32, v16
+    release()
+    return c
+
+
+def multi_tokenizer_path(card):
+    """multi_tokenizer_loss with two Enc-Qformer-Uni-XL/2 encoders, at 256
+    px (32 x 32) and 512 px (64 x 64), feeding MMDiT_XL at K = 2 x 512,
+    fp32, with VQ states; loss and gradients held against the same call
+    with the plain versions forced (the train steps' rule). One attention
+    launch per joint block."""
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import (
+        MultiImageTokenizer, MultiTokenizerConfig, multi_tokenizer_loss,
+        tokenizer_config_from_params)
+    from selftoktokenizer_tpu_torch.models.zoo import build_decoder_config
+    from selftoktokenizer_tpu_torch.ops import routing
+
+    p = _flagship_params()
+    t256 = tokenizer_config_from_params(p)
+    t512 = tokenizer_config_from_params(dict(p, image_size=512))
+    dec = build_decoder_config("MMDiT_XL", K=1024, input_size=32, encoder_hidden_size=16,
+                               in_channels=16, decoder_config=p["decoder_config"],
+                               diti_positions=True)
+    cfg = MultiTokenizerConfig(
+        encoders={"res256": t256.encoder, "res512": t512.encoder}, decoder=dec, k=512,
+        stages=t256.stages, k_per_stage=t256.k_per_stage, image_size=256,
+        train_encoder_res="res256", diffusion=t256.diffusion, quantizer=t256.quantizer)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        tok = _seeded_module(MultiImageTokenizer(cfg), 25)
+    log(f"  multi-resolution tokenizer: {_n_params(tok) / 1e9:.3f} B parameters (MMDiT_XL at "
+        f"K = {dec.K}, encoders at {t256.encoder.input_size} and {t512.encoder.input_size} latents)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    B = FAMILIES_B["multi_tokenizer"]
+    batch = {"res256": torch.randn((B, 32, 32, 16), generator=gen, device="cuda"),
+             "res512": torch.randn((B, 64, 64, 16), generator=gen, device="cuda")}
+    C = t256.encoder.codebook_size
+    draws = {"t": torch.rand((B,), generator=gen, device="cuda"),
+             "noise": torch.randn(batch["res256"].shape, generator=gen, device="cuda"),
+             "vq_draws": {r: {"kmeans_idx": vq_mod.kmeans_init_indices(B * 512, C, gen),
+                              "react_uniforms": torch.rand((C,), generator=gen, device="cuda")}
+                          for r in cfg.encoders}}
+    states = {r: vq_mod.vq_state_init(tok.encoder[r].quantizer, 512) for r in cfg.encoders}
+
+    def step():
+        tok.zero_grad(set_to_none=True)
+        loss, aux = multi_tokenizer_loss(tok, cfg, batch, vq_states=states, **draws)
+        loss.backward()
+        return float(loss.detach()), aux
+
+    before = counts()
+    with routing.kernel_route("plain"):
+        loss_p, _ = step()
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    named = [(n, q) for n, q in tok.named_parameters() if q.grad is not None]
+    plain = [q.grad.detach().to("cpu", copy=True) for _, q in named]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (loss, aux), t_first = timed(step)
+    c = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if c != (0, dec.depth, 0, 0):
+        raise RuntimeError(f"multi-tokenizer loss launch counts {c}, expected "
+                           f"(0, {dec.depth}, 0, 0)")
+    hold_loss("multi-tokenizer loss", loss, loss_p)
+    hold_grads("multi-tokenizer loss", named, plain)
+    for r, st in aux["vq_states"].items():
+        if st is None or not bool(st.initted) or not torch.isfinite(st.embed).all():
+            raise RuntimeError(f"multi-tokenizer loss: the {r} quantizer did not train")
+    del plain
+    w = warm(step, 2)
+    log(f"train multi-resolution tokenizer loss + backward, batch {B}, fp32 (TF32 off): "
+        f"{w:.3f} s warm ({t_first:.3f} s counted call), loss {loss:.6f} vs plain {loss_p:.6f}, "
+        f"peak {peak / 2**30:.2f} GiB on {card}")
+    del tok, named, aux, states
+    release()
+    return c
+
+
+def dit_ddpm_path(card):
+    """DiT-XL/2 on 32 x 32 x 4 latents, 1000 classes, learned sigma: DDPM
+    training_losses with its VB term, forward and backward at batch 8 in
+    fp32; p_sample_loop over create_diffusion("250") and ddim_sample_loop
+    over "ddim50", both through dit_forward_with_cfg at cfg 4.0, 2 images
+    (4 rows). The same generator gives the same samples."""
+    from selftoktokenizer_tpu_torch.models import ddpm
+    from selftoktokenizer_tpu_torch.models import dit as dit_mod
+
+    cfg = dit_mod.DiTConfig(**dit_mod.DIT_CONFIGS["DiT-XL/2"], input_size=32, in_channels=4,
+                            num_classes=1000, learn_sigma=True)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        model = _seeded_module(dit_mod.DiT(cfg), 27)
+    log(f"  DiT-XL/2: {_n_params(model) / 1e6:.1f} M parameters, head dim "
+        f"{cfg.hidden_size // cfg.num_heads}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    B = FAMILIES_B["dit_train"]
+    x0 = torch.randn((B, 32, 32, 4), generator=gen, device="cuda").clamp_(-1, 1)
+    y = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    diffusion = ddpm.create_diffusion("")
+    reset_counts()
+
+    def train():
+        model.zero_grad(set_to_none=True)
+        terms = diffusion.training_losses(lambda x, t: dit_mod.dit_apply(model, cfg, x, t, y),
+                                          x0, ts, noise=noise)
+        loss = terms["loss"].mean()
+        loss.backward()
+        return terms
+
+    terms, t_first = timed(train)
+    if not all(torch.isfinite(terms[n]).all() for n in ("loss", "mse", "vb")):
+        raise RuntimeError("DiT training losses: non-finite terms")
+    if not all(torch.isfinite(q.grad).all() for q in model.parameters() if q.grad is not None):
+        raise RuntimeError("DiT training losses: non-finite gradients")
+    w_train = warm(train, 3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train DiT-XL/2 DDPM loss (MSE + VB) + backward, batch {B}, fp32 (TF32 off): "
+        f"{w_train:.3f} s warm ({t_first:.3f} s first), loss "
+        f"{float(terms['loss'].detach().mean()):.5f}, vb {float(terms['vb'].detach().mean()):.5f} "
+        f"bits/dim, peak {peak / 2**30:.2f} GiB on {card}")
+    model.requires_grad_(False)
+    model.zero_grad(set_to_none=True)
+    labels = torch.tensor([207, 360, 1000, 1000], device="cuda")     # 2 classes, then null
+
+    def cfg_model(x, t):
+        return dit_mod.dit_forward_with_cfg(model, cfg, x, t, labels, 4.0)
+
+    def sample(loop, spec, seed):
+        d = ddpm.create_diffusion(spec)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        z = torch.randn((2, 32, 32, 4), generator=g, device="cuda")
+        z = torch.cat([z, z])
+        with torch.no_grad():
+            return getattr(d, loop)(cfg_model, z.shape, rng=g, noise=z, clip_denoised=False)
+
+    out = {}
+    for loop, spec in (("p_sample_loop", "250"), ("ddim_sample_loop", "ddim50")):
+        s1, t1 = timed(lambda: sample(loop, spec, 29))
+        s2 = sample(loop, spec, 29)
+        if tuple(s1.shape) != (4, 32, 32, 4) or not torch.isfinite(s1).all():
+            raise RuntimeError(f"DiT {loop}: bad samples")
+        if not torch.equal(s1, s2):
+            raise RuntimeError(f"DiT {loop}: the same generator gave other samples")
+        # the guidance covers the first 3 channels only (the reference's
+        # quirk), and both halves' model input is the first half: DDIM's
+        # first 3 channels stay equal across the halves; the ancestral step
+        # also reads each half's own variance and noise
+        if loop == "ddim_sample_loop" and not torch.equal(s1[:2, ..., :3], s1[2:, ..., :3]):
+            raise RuntimeError(f"DiT {loop}: the guided channels differ between the halves")
+        out[loop] = t1
+        log(f"sample DiT-XL/2 {loop} ({spec}), cfg 4.0, 2 images (4 rows), fp32: {t1:.3f} s "
+            f"({t1 / int(spec.replace('ddim', '')) * 1e3:.1f} ms a step) on {card}")
+    c = counts()
+    if c != (0, 0, 0, 0):
+        raise RuntimeError(f"DiT launch counts {c}: its attention (head dim 72) is plain")
+    del model
+    release()
+    return c
+
+
+def text_encoders_path(card):
+    """CLIP-L, CLIP-G and the T5-XXL encoder at the SD3 widths in fp32,
+    batch 2 x 77 seeded ids; CLIP at the penultimate layer, pooled at the
+    end token. Each model is freed before the next."""
+    from selftoktokenizer_tpu_torch.models import text_encoders as te
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    specs = [
+        ("CLIP-L", te.CLIPTextConfig(), lambda m, c: te.SDClipModel(m, c, layer="hidden",
+                                                                     layer_idx=-2)),
+        ("CLIP-G", te.CLIPTextConfig(num_hidden_layers=32, hidden_size=1280,
+                                     num_attention_heads=20, intermediate_size=5120,
+                                     hidden_act="gelu"), te.sdxl_clip_g),
+        ("T5-XXL", te.T5Config(), te.t5xxl_model),
+    ]
+    reset_counts()
+    for name, c, wrap in specs:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with torch.device("cuda"):
+            model = _seeded_module(te.T5(c) if name == "T5-XXL" else te.CLIPTextModel(c), 31)
+        model.requires_grad_(False)
+        built = time.time() - t0
+        if name == "T5-XXL":
+            ids = torch.randint(2, c.vocab_size, (2, 77), generator=gen, device="cuda")
+        else:
+            ids = torch.randint(1, 49406, (2, 77), generator=gen, device="cuda")
+            ids[:, 0] = 49406
+            ids[0, 9:], ids[1, 30:] = 49407, 49407     # the end token, padded with itself
+        enc = wrap(model, c)
+        (z, pooled), t_first = timed(lambda: enc(ids))
+        width = c.d_model if name == "T5-XXL" else c.hidden_size
+        if tuple(z.shape) != (2, 77, width) or not torch.isfinite(z).all() or (
+                pooled is not None and not torch.isfinite(pooled).all()):
+            raise RuntimeError(f"{name}: bad output {tuple(z.shape)}")
+        if name != "T5-XXL" and pooled is None:
+            raise RuntimeError(f"{name}: no pooled output")
+        w = warm(lambda: enc(ids), 3)
+        log(f"encode text {name} ({_n_params(model) / 1e9:.3f} B parameters, built in "
+            f"{built:.1f} s), batch 2 x 77, fp32: {w * 1e3:.1f} ms warm ({t_first * 1e3:.1f} ms "
+            f"first), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+        del model, enc, z, pooled
+        release()
+    c = counts()
+    if c != (0, 0, 0, 0):
+        raise RuntimeError(f"text encoder launch counts {c}: their attention is plain")
+    return c
+
+
+def families_phase(card, do_profile=False):
+    """The sixth slice's models at full width, fp32 with TF32 off (the
+    global flags come back afterwards): each path's counts set to 0 just
+    before it and read just after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    by_path = {}
+    try:
+        for label, fn in (("families multires encoder", multires_encoder_path),
+                          ("families multires MMDiT", multires_mmdit_path),
+                          ("families multi-resolution tokenizer loss", multi_tokenizer_path),
+                          ("families DiT + DDPM", dit_ddpm_path),
+                          ("families text encoders", text_encoders_path)):
+            t0 = time.time()
+            by_path[label] = fn(card)
+            log(f"  {label}: {time.time() - t0:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return by_path
+
+
 # ----------------------------------------------------------------- train ---
 
 TRAIN_BATCH = 4
@@ -2160,6 +2553,8 @@ def main_path_phase(card, do_profile=False):
     release()
     log("phase zoo:")
     by_path.update(zoo_phase(card, do_profile))
+    log("phase families:")
+    by_path.update(families_phase(card, do_profile))
     log("phase train:")
     by_path.update(train_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
@@ -2172,8 +2567,9 @@ def main_path_phase(card, do_profile=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["kernels", "train", "zoo"], default=None,
-                    help="stop after the kernel phase, or run the train or the zoo phase alone")
+    ap.add_argument("--only", choices=["kernels", "train", "zoo", "families"], default=None,
+                    help="stop after the kernel phase, or run the train, the zoo or the "
+                         "families phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -2201,9 +2597,9 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only in ("train", "zoo"):
+    if args.only in ("train", "zoo", "families"):
         log(f"phase {args.only}:")
-        phase = train_phase if args.only == "train" else zoo_phase
+        phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase}[args.only]
         paths = phase(card, args.profile)
         by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
         log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")

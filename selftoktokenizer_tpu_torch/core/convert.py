@@ -1,7 +1,10 @@
 """Weights carried across from the JAX package's parameter trees.
 
-``tokenizer_from_jax_tree`` and ``vae_from_jax_tree`` take the nested dicts
-that the reference package's ``tokenizer_init`` / ``vae_init`` return, with
+``tokenizer_from_jax_tree`` and ``vae_from_jax_tree`` (and the
+``*_from_jax_tree`` of every other model: the multi-resolution encoder and
+MMDiT, the multi-resolution tokenizer, DiT and its two block variants,
+CLIP, T5) take the nested dicts that the reference package's ``*_init``
+functions return, with
 every leaf already a numpy array (the caller converts with ``np.asarray``),
 and load them into the port's modules. The layout differences are undone
 here: ``[in, out]`` matmul weights -> ``[out, in]``, HWIO conv kernels ->
@@ -19,7 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from selftoktokenizer_tpu_torch.models.tokenizer import ImageTokenizer, TokenizerConfig
+from selftoktokenizer_tpu_torch.models import dit as dit_mod
+from selftoktokenizer_tpu_torch.models import text_encoders as te
+from selftoktokenizer_tpu_torch.models.encoder import QformerEncoderMultiRes
+from selftoktokenizer_tpu_torch.models.mmdit import MMDiT
+from selftoktokenizer_tpu_torch.models.tokenizer import (
+    ImageTokenizer, MultiImageTokenizer, MultiTokenizerConfig, TokenizerConfig)
 from selftoktokenizer_tpu_torch.models.vq import VQState
 from selftoktokenizer_tpu_torch.models.vae import SDVAE, VAEConfig
 
@@ -73,6 +81,14 @@ def _rmsnorm(out, prefix, p):
     out[prefix + ".weight"] = _t(p["weight"])
 
 
+def _quantizer(out, q):
+    if "project_in" in q:
+        _linear(out, "quantizer.project_in", q["project_in"])
+    if "project_out" in q:
+        _linear(out, "quantizer.project_out", q["project_out"])
+    out["quantizer._codebook.embed"] = _t(np.asarray(q["embed"])[None])
+
+
 def encoder_state_dict(p, cfg):
     """JAX encoder tree (any mode) -> reference-named state dict."""
     out = {}
@@ -80,12 +96,7 @@ def encoder_state_dict(p, cfg):
     out["pos_embed"] = _t(p["pos_embed"])
     for n in ("final_layer_norm", "final_layer_norm2", "final_layer_norm3"):
         _layernorm(out, n, p[n])
-    q = p["quantizer"]
-    if "project_in" in q:
-        _linear(out, "quantizer.project_in", q["project_in"])
-    if "project_out" in q:
-        _linear(out, "quantizer.project_out", q["project_out"])
-    out["quantizer._codebook.embed"] = _t(np.asarray(q["embed"])[None])
+    _quantizer(out, p["quantizer"])
     mode = cfg.qformer_mode
     if mode != "vit":
         out["query_tokens"] = _t(p["query_tokens"])
@@ -136,8 +147,13 @@ def _dismantled(out, pre, b, cfg, pre_only=False):
         _timestep_embedder(out, pre + "t_embedder", b["t_embedder"])
 
 
+def _multires(p):
+    return "x_embedder_clean" in p
+
+
 def mmdit_state_dict(p, cfg):
-    """JAX MMDiT tree (a decoder or a renderer) -> reference-named state dict."""
+    """JAX MMDiT tree (a decoder, a renderer or the multi-resolution MMDiT)
+    -> reference-named state dict."""
     out = {}
     _timestep_embedder(out, "t_embedder", p["t_embedder"])
     out["context_pos_embed"] = _t(p["context_pos_embed"])
@@ -154,16 +170,187 @@ def mmdit_state_dict(p, cfg):
         _timestep_embedder(out, "y_embedder", p["y_embedder"])
     if "register" in p:
         out["register"] = _t(p["register"])
+    if _multires(p):
+        _patch_embed(out, "x_embedder_clean", p["x_embedder_clean"], cfg.patch_size,
+                     cfg.in_channels)
+        _linear(out, "context_embedder_low_res", p["context_embedder_low_res"])
     for i in range(cfg.depth - 1):
         b = _unstack(p["joint_blocks"], i)
         pre = f"joint_blocks.{i}."
-        _dismantled(out, pre + "context_block.", b["context_block"], cfg)
-        _dismantled(out, pre + "x_block.", b["x_block"], cfg)
+        for n in ("context_block", "x_block", "context_block_low_res", "rec_block"):
+            if n in b:
+                _dismantled(out, pre + n + ".", b[n], cfg)
     pre = f"joint_blocks.{cfg.depth - 1}."
     lb = p["last_block"]
-    _dismantled(out, pre + "context_block.", lb["context_block"], cfg, pre_only=True)
-    _dismantled(out, pre + "x_block.", lb["x_block"], cfg)
+    for n in ("context_block", "x_block", "context_block_low_res", "rec_block"):
+        if n in lb:
+            _dismantled(out, pre + n + ".", lb[n], cfg,
+                        pre_only=n in ("context_block", "context_block_low_res"))
     return out
+
+
+def mmdit_from_jax_tree(tree, cfg) -> MMDiT:
+    """A JAX MMDiT tree (with the multi-resolution leaves or without) ->
+    MMDiT (CPU, fp32)."""
+    m = MMDiT(cfg, multires=_multires(tree))
+    m.load_state_dict(mmdit_state_dict(tree, cfg), strict=True)
+    return m
+
+
+def multires_encoder_state_dict(p, cfg):
+    """JAX multi-resolution encoder tree -> reference-named state dict."""
+    out = {}
+    _patch_embed(out, "x_embedder", p["x_embedder"], cfg.patch_size, cfg.in_channels)
+    for n in ("pos_embed", "query_tokens", "low_res_hidden_pos_embed"):
+        out[n] = _t(p[n])
+    for n in ("final_layer_norm", "final_layer_norm2", "final_layer_norm3"):
+        _layernorm(out, n, p[n])
+    _quantizer(out, p["quantizer"])
+    if "token_embedder" in p:
+        _linear(out, "token_embedder", p["token_embedder"])
+    for i in range(cfg.depth):
+        b = _unstack(p["blocks"], i)
+        pre = f"blocks.{i}."
+        for n in ("qkv", "query_linear", "low_res_linear", "x_to_query_kv",
+                  "low_res_to_query_kv", "proj", "query_proj", "low_res_proj"):
+            _linear(out, pre + "attn." + n, b[n])
+        for n in ("mlp", "q_mlp", "low_res_mlp"):
+            _mlp(out, pre + n, b[n])
+        if cfg.time_adaln:
+            _linear(out, pre + "adaLN_modulation.1", b["adaLN"])
+            _timestep_embedder(out, pre + "t_embedder", b["t_embedder"])
+            _linear(out, pre + "adaLN_modulation_low_res.1", b["adaLN_low_res"])
+            _timestep_embedder(out, pre + "t_embedder_low_res", b["t_embedder_low_res"])
+    return out
+
+
+def multires_encoder_from_jax_tree(tree, cfg) -> QformerEncoderMultiRes:
+    enc = QformerEncoderMultiRes(cfg)
+    enc.load_state_dict(multires_encoder_state_dict(tree, cfg), strict=True)
+    return enc
+
+
+def multi_tokenizer_state_dict(tree, cfg: MultiTokenizerConfig):
+    """{'encoder': {resolution: ...}, 'model': ...} -> the state dict of a
+    MultiImageTokenizer (``encoder.<resolution>.*``, ``model.*``)."""
+    sd = {"model." + k: v for k, v in mmdit_state_dict(tree["model"], cfg.decoder).items()}
+    for res, ec in cfg.encoders.items():
+        sd.update({f"encoder.{res}.{k}": v
+                   for k, v in encoder_state_dict(tree["encoder"][res], ec).items()})
+    return sd
+
+
+def multi_tokenizer_from_jax_tree(tree, cfg: MultiTokenizerConfig) -> MultiImageTokenizer:
+    tok = MultiImageTokenizer(cfg)
+    tok.load_state_dict(multi_tokenizer_state_dict(tree, cfg), strict=True)
+    return tok
+
+
+def _dit_block(out, pre, b):
+    _linear(out, pre + "attn.qkv", b["attn"]["qkv"])
+    _linear(out, pre + "attn.proj", b["attn"]["proj"])
+    _mlp(out, pre + "mlp", b["mlp"])
+    _linear(out, pre + "adaLN_modulation.1", b["adaLN"])
+
+
+def dit_state_dict(p, cfg):
+    """JAX DiT tree -> reference-named state dict."""
+    out = {}
+    _patch_embed(out, "x_embedder", p["x_embedder"], cfg.patch_size, cfg.in_channels)
+    out["pos_embed"] = _t(p["pos_embed"])
+    _timestep_embedder(out, "t_embedder", p["t_embedder"])
+    out["y_embedder.embedding_table.weight"] = _t(p["y_embedder"]["table"])
+    for i in range(cfg.depth):
+        _dit_block(out, f"blocks.{i}.", _unstack(p["blocks"], i))
+    _linear(out, "final_layer.linear", p["final_layer"]["linear"])
+    _linear(out, "final_layer.adaLN_modulation.1", p["final_layer"]["adaLN"])
+    return out
+
+
+def dit_from_jax_tree(tree, cfg) -> dit_mod.DiT:
+    m = dit_mod.DiT(cfg)
+    m.load_state_dict(dit_state_dict(tree, cfg), strict=True)
+    return m
+
+
+def dit_cross_attn_block_from_jax_tree(p, hidden, encoder_hidden, num_heads, mlp_ratio=4.0):
+    out = {}
+    _dit_block(out, "", p)
+    for n in ("to_q", "kv", "proj"):
+        _linear(out, "cross_attn." + n, p["cross_attn"][n])
+    if "cross_mod" in p:
+        _linear(out, "cross_modulation.1", p["cross_mod"])
+    m = dit_mod.DiTCrossAttnBlock(hidden, encoder_hidden, num_heads, mlp_ratio,
+                                  cross_modulate="cross_mod" in p)
+    m.load_state_dict(out, strict=True)
+    return m
+
+
+def dit_dual_block_from_jax_tree(p, cfg) -> dit_mod.DiTDualBlock:
+    out = {}
+    a = p["attn"]
+    for n in ("qkv", "query_linear", "proj", "query_proj", "to_query_kv"):
+        if n in a:
+            _linear(out, "attn." + n, a[n])
+    if "gate" in a:
+        out["attn.gate"] = _t(a["gate"])
+    for n in ("q_norm", "k_norm", "query_qnorm", "query_knorm"):
+        if n in a:
+            _rmsnorm(out, "attn." + n, a[n])
+    _mlp(out, "mlp", p["mlp"])
+    _mlp(out, "q_mlp", p["q_mlp"])
+    _linear(out, "adaLN_modulation.1", p["adaLN"])
+    _linear(out, "adaLN_modulation_q.1", p["adaLN_q"])
+    m = dit_mod.DiTDualBlock(cfg)
+    m.load_state_dict(out, strict=True)
+    return m
+
+
+def clip_text_state_dict(p, cfg):
+    """JAX CLIP tree -> reference (HF) named state dict."""
+    out = {"text_model.embeddings.token_embedding.weight": _t(p["token_embedding"]),
+           "text_model.embeddings.position_embedding.weight": _t(p["position_embedding"])}
+    for i in range(cfg.num_hidden_layers):
+        b = _unstack(p["layers"], i)
+        pre = f"text_model.encoder.layers.{i}."
+        _layernorm(out, pre + "layer_norm1", b["ln1"])
+        _layernorm(out, pre + "layer_norm2", b["ln2"])
+        for n, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out", "out_proj")):
+            _linear(out, pre + "self_attn." + hf, b["attn"][n])
+        _mlp(out, pre + "mlp", b["mlp"])
+    _layernorm(out, "text_model.final_layer_norm", p["final_layer_norm"])
+    _linear(out, "text_projection", p["text_projection"])
+    return out
+
+
+def clip_text_from_jax_tree(tree, cfg) -> te.CLIPTextModel:
+    m = te.CLIPTextModel(cfg)
+    m.load_state_dict(clip_text_state_dict(tree, cfg), strict=True)
+    return m
+
+
+def t5_state_dict(p, cfg):
+    """JAX T5 tree -> reference (HF) named state dict."""
+    out = {"encoder.embed_tokens.weight": _t(p["embed_tokens"]),
+           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+               _t(p["relative_attention_bias"])}
+    for i in range(cfg.num_layers):
+        b = _unstack(p["blocks"], i)
+        pre = f"encoder.block.{i}.layer."
+        _rmsnorm(out, pre + "0.layer_norm", b["attn_norm"])
+        for n in ("q", "k", "v", "o"):
+            _linear(out, pre + "0.SelfAttention." + n, b["attn"][n])
+        _rmsnorm(out, pre + "1.layer_norm", b["ff_norm"])
+        for n in ("wi_0", "wi_1", "wo"):
+            _linear(out, pre + "1.DenseReluDense." + n, b["ff"][n])
+    _rmsnorm(out, "encoder.final_layer_norm", p["final_layer_norm"])
+    return out
+
+
+def t5_from_jax_tree(tree, cfg) -> te.T5:
+    m = te.T5(cfg)
+    m.load_state_dict(t5_state_dict(tree, cfg), strict=True)
+    return m
 
 
 def tokenizer_state_dict(tree, tcfg: TokenizerConfig):

@@ -15,6 +15,10 @@ Modes (``cfg.qformer_mode``):
 * ``vit``: plain ViT blocks; the outputs of the last K blocks are the K
   token groups, each of ``patches_per_token`` patches.
 
+The multi-resolution encoder (``QformerEncoderMultiRes``,
+``multires_encoder_apply``) adds a third stream, the Selftok tokens of a
+lower resolution, to unidirectional dual blocks; its attention is plain.
+
 The modules own the weights under the reference checkpoint's names
 (``blocks.{i}.attn.qkv.weight``, ``qformer.qformer_blocks.{i}.to_q.weight``,
 ``x_embedder.proj.weight`` ...); the ``*_apply`` functions, named as in the
@@ -44,7 +48,7 @@ from selftoktokenizer_tpu_torch.ops.attention import sdpa, serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
     gate, gelu_tanh, linear, linear_apply, modulate, patch_embed, timestep_embedder)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
-from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_2d
+from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_1d, sincos_2d
 
 @dataclasses.dataclass
 class EncoderConfig:
@@ -77,7 +81,7 @@ class EncoderConfig:
     # quantizer
     code_dim: int = 16
     codebook_size: int = 32768
-    # multi-resolution stream (not ported; kept so configs compare equal)
+    # multi-resolution stream (QformerEncoderMultiRes)
     low_res_hidden_size: int = 64
     low_res_code_dim: int = 16
     low_res_codebook_size: int = 32768
@@ -276,7 +280,7 @@ def _merge_heads(t):
 
 
 def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query, mask=None,
-                         fast_attn=False):
+                         fast_attn=False, x_mask=None):
     """Two-stream attention. x: [B,N,C] image stream; query: [B,K,Cq].
 
     Unidirectional: x self-attends; the query attends to [x-derived KV ||
@@ -284,7 +288,9 @@ def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query, mask=No
     over [x || query]. Zero-init: the unidirectional form with the image
     keys and the query keys each softmaxed on their own, the image part
     scaled by tanh(gate) per head, in fp32. mask: the query rows' boolean
-    mask [1, 1, K, N+K] (``attn_mask``).
+    mask [1, 1, K, N+K] (``attn_mask``), or in the bidirectional form the
+    joint rows'; x_mask: the x rows' boolean mask of the unidirectional and
+    zero-init forms (the DiT dual block's).
 
     fast_attn routes the unidirectional query attention without a mask
     through ``serving_attention`` (the CUDA kernel); every other attention
@@ -316,7 +322,7 @@ def dual_attention_apply(p: DualAttention, cfg: EncoderConfig, x, query, mask=No
     else:
         kv = linear(x, p.to_query_kv.weight, p.to_query_kv.bias).reshape(
             B, N, 2, QH, Cq // QH).permute(2, 0, 3, 1, 4)
-        x_out = sdpa(xq, xk, xv)
+        x_out = sdpa(xq, xk, xv, mask=x_mask)
         k2 = torch.cat([kv[0], qk], dim=2)
         v2 = torch.cat([kv[1], qv], dim=2)
         if cfg.qk_norm:
@@ -407,14 +413,18 @@ def concat_block_apply(p: ViTBlock, cfg: EncoderConfig, x, q, mods):
     return x, q
 
 
-def cross_attention_apply(p: CrossAttention, heads, x, c):
-    """The queries x [B,K,D] attend over c [B,N,c_dim]."""
+def cross_attention_apply(p: CrossAttention, heads, x, c, mask=None):
+    """The queries x [B,K,D] attend over c [B,N,c_dim]; mask: an optional
+    [B, N] keep-mask over c (masked keys get -inf, as in the reference)."""
     B, K, D = x.shape
     kv = linear(c, p.kv.weight, p.kv.bias).reshape(
         B, c.shape[1], 2, heads, D // heads).permute(2, 0, 3, 1, 4)
     q = linear(x, p.to_q.weight, p.to_q.bias).reshape(
         B, K, heads, D // heads).permute(0, 2, 1, 3)
-    out = sdpa(q, kv[0], kv[1])
+    bias = None
+    if mask is not None:
+        bias = torch.where(mask[:, None, None, :], 0.0, float("-inf")).to(torch.float32)
+    out = sdpa(q, kv[0], kv[1], mask=bias)
     return linear(_merge_heads(out), p.proj.weight, p.proj.bias)
 
 
@@ -592,3 +602,161 @@ def encoder_margins(p: QformerEncoder, cfg: EncoderConfig, x, trunk_dtype=None,
     encoder_apply so the margins certify the numerics of the path in use."""
     outs, _ = _pre_vq(p, cfg, x, trunk_dtype, fast_attn)
     return vq_mod.vq_margins(p.quantizer, outs, fast=trunk_dtype is not None)
+
+
+# ---------------------------------------------------------------------------
+# Multi-resolution encoder (QformerEncoderMultiRes)
+# ---------------------------------------------------------------------------
+
+class DualAttentionMultiRes(nn.Module):
+    """Three streams: x, the query and the low-res Selftok tokens. The four
+    input projections carry no bias."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        C, Cq, Cl = cfg.hidden_size, cfg.query_dim, cfg.low_res_hidden_size
+        self.qkv = nn.Linear(C, 3 * C, bias=False)
+        self.query_linear = nn.Linear(Cq, 3 * Cq, bias=False)
+        self.low_res_linear = nn.Linear(Cl, 3 * Cl, bias=False)
+        self.x_to_query_kv = nn.Linear(C, 2 * Cq, bias=False)
+        self.low_res_to_query_kv = nn.Linear(Cl, 2 * Cq, bias=False)
+        self.proj = nn.Linear(C, C)
+        self.query_proj = nn.Linear(Cq, Cq)
+        self.low_res_proj = nn.Linear(Cl, Cl)
+
+
+class DualBlockMultiRes(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        C, Cq, Cl = cfg.hidden_size, cfg.query_dim, cfg.low_res_hidden_size
+        self.attn = DualAttentionMultiRes(cfg)
+        self.mlp = Mlp(C, int(C * cfg.mlp_ratio))
+        self.q_mlp = Mlp(Cq, int(Cq * cfg.mlp_ratio))
+        self.low_res_mlp = Mlp(Cl, int(Cl * cfg.mlp_ratio))
+        if cfg.time_adaln:
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(Cq, 6 * Cq))
+            self.t_embedder = TimestepEmbedder(Cq)
+            self.adaLN_modulation_low_res = nn.Sequential(nn.SiLU(), nn.Linear(Cl, 6 * Cl))
+            self.t_embedder_low_res = TimestepEmbedder(Cl)
+        else:
+            self.adaLN_modulation = self.adaLN_modulation_low_res = None
+
+
+class QformerEncoderMultiRes(QformerEncoder):
+    """Weights of the multi-resolution encoder: the dual encoder's patch
+    embedding, tables, norms, quantizer and query tokens, multi-resolution
+    dual blocks, a token embedder for the low-res stream (only when its code
+    width differs from its hidden width) and that stream's 1-D sincos
+    positions. The blocks are dual whatever ``qformer_mode`` says."""
+
+    def __init__(self, cfg: EncoderConfig):
+        if cfg.qk_norm:
+            raise ValueError("the multi-resolution encoder has no qk-norm weights")
+        super().__init__(dataclasses.replace(cfg, qformer_mode="dual"))
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(DualBlockMultiRes(cfg) for _ in range(cfg.depth))
+        if cfg.low_res_code_dim != cfg.low_res_hidden_size:
+            self.token_embedder = nn.Linear(cfg.low_res_code_dim, cfg.low_res_hidden_size)
+        self.low_res_hidden_pos_embed = nn.Parameter(torch.tensor(
+            sincos_1d(cfg.low_res_hidden_size, np.arange(cfg.low_res_K, dtype=np.float32)),
+            dtype=torch.float32)[None])
+
+
+def _qkv_heads(t, parts, heads):
+    """[B, L, parts*C] -> parts x [B, heads, L, C/heads]."""
+    B, L, C = t.shape
+    return t.reshape(B, L, parts, heads, C // (parts * heads)).permute(2, 0, 3, 1, 4)
+
+
+def dual_attention_multires_apply(p: DualAttentionMultiRes, cfg: EncoderConfig, x, query,
+                                  low_res, mask=None, x_mask=None, low_res_mask=None):
+    """Three-stream attention, unidirectional: x self-attends, the low-res
+    stream self-attends with ``low_res_heads``, the query attends over
+    [x -> query KV || low-res -> query KV || query KV]. All plain fp32-softmax
+    ``sdpa``."""
+    H, QH, LH = cfg.num_heads, cfg.query_heads, cfg.low_res_heads
+    xq, xk, xv = _qkv_heads(linear(x, p.qkv.weight), 3, H)
+    lq, lk, lv = _qkv_heads(linear(low_res, p.low_res_linear.weight), 3, LH)
+    qq, qk, qv = _qkv_heads(linear(query, p.query_linear.weight), 3, QH)
+    x_kv = _qkv_heads(linear(x, p.x_to_query_kv.weight), 2, QH)
+    l_kv = _qkv_heads(linear(low_res, p.low_res_to_query_kv.weight), 2, QH)
+
+    x_out = sdpa(xq, xk, xv, mask=x_mask)
+    l_out = sdpa(lq, lk, lv, mask=low_res_mask)
+    q_out = sdpa(qq, torch.cat([x_kv[0], l_kv[0], qk], dim=2),
+                 torch.cat([x_kv[1], l_kv[1], qv], dim=2), mask=mask)
+    return (linear(_merge_heads(x_out), p.proj.weight, p.proj.bias),
+            linear(_merge_heads(q_out), p.query_proj.weight, p.query_proj.bias),
+            linear(_merge_heads(l_out), p.low_res_proj.weight, p.low_res_proj.bias))
+
+
+def dual_block_multires_mods(p: DualBlockMultiRes, K, K_low, device):
+    """adaLN modulations of the query and the low-res streams (6 tensors
+    each, or Nones without time_adaln): plain positions K_low..K_low+K-1
+    for the query and 0..K_low-1 for the low-res stream, not the diti
+    positions 1000 + 8k."""
+    if p.adaLN_modulation is None:
+        return (None,) * 6, (None,) * 6
+    pos_q = torch.arange(K_low, K_low + K, dtype=torch.int32, device=device)
+    pos_l = torch.arange(K_low, dtype=torch.int32, device=device)
+    lin, lin_l = p.adaLN_modulation[1], p.adaLN_modulation_low_res[1]
+    mods = linear(F.silu(timestep_embedder_apply(p.t_embedder, pos_q)), lin.weight, lin.bias)
+    low = linear(F.silu(timestep_embedder_apply(p.t_embedder_low_res, pos_l)),
+                 lin_l.weight, lin_l.bias)
+    return tuple(torch.chunk(mods, 6, dim=1)), tuple(torch.chunk(low, 6, dim=1))
+
+
+def dual_block_multires_apply(p: DualBlockMultiRes, cfg: EncoderConfig, x, q, low_res, mods,
+                              low_mods, mask=None):
+    """The low-res stream mirrors the query stream's structure after the
+    attention."""
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
+    lsm, lsc, lgm, lsm2, lsc2, lgm2 = low_mods
+    s = cfg.ln_scale
+    x_attn, q_attn, l_attn = dual_attention_multires_apply(
+        p.attn, cfg, layer_norm(x), modulate(layer_norm(q), shift_msa, scale_msa, 0),
+        modulate(layer_norm(low_res), lsm, lsc, 0), mask=mask)
+    x = x + x_attn
+    x = x + mlp_apply(p.mlp, layer_norm(x))
+    q = s * q + gate(q_attn, gate_msa)
+    q = s * q + gate(mlp_apply(p.q_mlp, modulate(layer_norm(q), shift_mlp, scale_mlp, 0)),
+                     gate_mlp)
+    low_res = s * low_res + gate(l_attn, lgm)
+    low_res = s * low_res + gate(
+        mlp_apply(p.low_res_mlp, modulate(layer_norm(low_res), lsm2, lsc2, 0)), lgm2)
+    return x, q, low_res
+
+
+def multires_encoder_outs(p: QformerEncoderMultiRes, cfg: EncoderConfig, x, token_embeds):
+    """The three-stream trunk on the embedded patches x [B,N,C] and the
+    low-res stream's token embeddings [B, low_res_K, low_res_code_dim];
+    returns the K query tokens."""
+    low = token_embeds
+    if hasattr(p, "token_embedder"):
+        low = linear(low, p.token_embedder.weight, p.token_embedder.bias)
+    low = low + p.low_res_hidden_pos_embed.to(low.dtype)
+    query = _query(p, cfg, x)
+    for blk in p.blocks:
+        mods, low_mods = dual_block_multires_mods(blk, cfg.K, cfg.low_res_K, x.device)
+        x, query, low = dual_block_multires_apply(blk, cfg, x, query, low, mods, low_mods)
+    return query
+
+
+def multires_encoder_apply(p: QformerEncoderMultiRes, cfg: EncoderConfig, x, token_embeds,
+                           d=None):
+    """The multi-resolution encoder's forward with quantization (fp32; the
+    quantizer is the ordinary ``vq_apply``, so on the card it takes
+    ``vq_argmax``). x: NHWC latents; token_embeds: [B, low_res_K,
+    low_res_code_dim]; d: optional [B] int token depth. Returns the 7-tuple
+    of ``encoder_apply`` when d is given, else (outs_q, indices)."""
+    outs = multires_encoder_outs(p, cfg, _embed_patches(p, cfg, x), token_embeds)
+    if cfg.pre_norm:
+        outs = layer_norm(outs, p.final_layer_norm.weight, p.final_layer_norm.bias)
+    outs_q, indices, loss, log_dict = vq_mod.vq_apply(p.quantizer, outs)
+    if cfg.post_norm:
+        outs_q = layer_norm(outs_q, p.final_layer_norm3.weight, p.final_layer_norm3.bias)
+    if d is None:
+        return outs_q, indices
+    enc_mask = get_encoder_mask(cfg, d)
+    ehs = outs_q * enc_mask[..., None].to(outs_q.dtype)
+    return ehs, outs, outs_q, enc_mask, loss, log_dict, indices

@@ -1,6 +1,6 @@
 """MMDiT: the SD3-style joint-attention diffusion decoder, its one-step
-mask-token renderer and the earlier standalone RenderDiT (counterpart of the
-reference ``models/mmdit.py``, less the multi-resolution streams).
+mask-token renderer, the earlier standalone RenderDiT and the
+multi-resolution MMDiT (counterpart of the reference ``models/mmdit.py``).
 
 The modules own the weights under the reference checkpoint's names
 (``joint_blocks.{i}.x_block.attn.qkv.weight``, the last joint block with a
@@ -34,6 +34,14 @@ non-persistent buffers (``set_uncond_buffers``). No path reads
 ``uncond_c``: the reference splices it into a renderer's unconditional
 context in ``cfg_inference`` / ``cfg_batched``, which patch-embed the
 noised latent, and a renderer has no patch embedder.
+
+The multi-resolution MMDiT (``MMDiT(cfg, multires=True)``,
+``mmdit_multires_apply``) adds a low-res context stream
+(``context_block_low_res``) and a reconstruction stream (``rec_block``, a
+clean low-res latent at t = 0 whose keys and values join the joint
+attention). Its attention is plain ``sdpa`` under the full mask, with a
+finite -1e30 bias for a masked key: a row with no active key gives the
+uniform mean of its values, where the reference's -inf gives NaN.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from torch import nn
 from selftoktokenizer_tpu_torch.models.encoder import (
     LayerNormWeight, Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, _merge_heads,
     mlp_apply, patch_embed_apply, timestep_embedder_apply)
-from selftoktokenizer_tpu_torch.ops.attention import serving_attention
+from selftoktokenizer_tpu_torch.ops.attention import sdpa, serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
     linear, linear_apply, modulate, unpatchify)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
@@ -153,11 +161,17 @@ class DismantledBlock(nn.Module):
 
 
 class JointBlock(nn.Module):
-    def __init__(self, cfg: MMDiTConfig, last=False):
+    """multires: also the low-res context stream's block (pre-only in the
+    last block, like the context block) and the reconstruction stream's."""
+
+    def __init__(self, cfg: MMDiTConfig, last=False, multires=False):
         super().__init__()
-        self.context_block = DismantledBlock(
-            cfg, pre_only=last, pos_embedder=cfg.time_adaln in ("pos_emb", "pos_t_emb"))
+        pos = cfg.time_adaln in ("pos_emb", "pos_t_emb")
+        self.context_block = DismantledBlock(cfg, pre_only=last, pos_embedder=pos)
         self.x_block = DismantledBlock(cfg)
+        if multires:
+            self.context_block_low_res = DismantledBlock(cfg, pre_only=last, pos_embedder=pos)
+            self.rec_block = DismantledBlock(cfg)
 
 
 class FinalLayer(nn.Module):
@@ -172,9 +186,12 @@ class MMDiT(nn.Module):
     """Weights of the decoder. ``joint_blocks[depth-1]`` is the last block,
     whose context branch is pre-only. A renderer (``cfg.renderer``) owns a
     learned ``mask_token`` [1, 1 or grid^2, D] and ``positional_embedding``
-    [grid^2, D] in place of the patch embedder and its ``pos_embed``."""
+    [grid^2, D] in place of the patch embedder and its ``pos_embed``.
+    ``multires`` adds the multi-resolution leaves: ``x_embedder_clean``,
+    ``context_embedder_low_res`` and each joint block's
+    ``context_block_low_res`` and ``rec_block``."""
 
-    def __init__(self, cfg: MMDiTConfig):
+    def __init__(self, cfg: MMDiTConfig, multires=False):
         super().__init__()
         _check_options(cfg)
         self.cfg = cfg
@@ -199,8 +216,14 @@ class MMDiT(nn.Module):
             sincos_1d(cfg.context_dim, base.astype(np.float32)), dtype=torch.float32)[None])
         if cfg.register_length > 0:
             self.register = nn.Parameter(torch.empty(1, cfg.register_length, D))
+        if multires:
+            if cfg.renderer:
+                raise ValueError("a renderer has no multi-resolution streams")
+            self.x_embedder_clean = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
+            self.context_embedder_low_res = nn.Linear(cfg.encoder_hidden_size, cfg.context_dim)
         self.joint_blocks = nn.ModuleList(
-            JointBlock(cfg, last=i == cfg.depth - 1) for i in range(cfg.depth))
+            JointBlock(cfg, last=i == cfg.depth - 1, multires=multires)
+            for i in range(cfg.depth))
 
     def set_uncond_buffers(self, buffers):
         """Set ``uncond_y`` / ``uncond_c`` (from ``load_uncond_buffers``) as
@@ -209,6 +232,15 @@ class MMDiT(nn.Module):
         for name, t in buffers.items():
             self.register_buffer(name, t.to(self.t_embedder.mlp[0].weight.device),
                                  persistent=False)
+
+
+def mmdit_from_state_dict(sd, cfg: MMDiTConfig) -> MMDiT:
+    """A reference MMDiT state dict -> MMDiT on the CPU in fp32, loaded
+    strictly; with the multi-resolution streams when the dict holds their
+    leaves (``x_embedder_clean.*``)."""
+    m = MMDiT(cfg, multires=any(k.startswith("x_embedder_clean.") for k in sd))
+    m.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
+    return m
 
 
 def load_uncond_buffers(cfg: MMDiTConfig):
@@ -319,13 +351,16 @@ def joint_block_apply(bp: JointBlock, cfg: MMDiTConfig, context, x, c,
     return new_ctx, new_x
 
 
-def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
-    """Context adaLN table over register_length + K positions, a function of
-    the weights only: in 'pos_emb' mode the modulations [depth-1, L,
-    6*hidden] (hoisting them removes t_embedder + adaLN of every context
-    block from the 50-step decode loop), in 'pos_t_emb' mode the
-    per-position embeddings [depth-1, L, hidden] (the adaLN then depends on
-    the per-sample conditioning); None in 't_emb' mode."""
+def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None,
+                            block_key="context_block"):
+    """Context adaLN table over register_length + K positions (or
+    ``length``), a function of the weights only: in 'pos_emb' mode the
+    modulations [depth-1, L, 6*hidden] (hoisting them removes t_embedder +
+    adaLN of every context block from the 50-step decode loop), in
+    'pos_t_emb' mode the per-position embeddings [depth-1, L, hidden] (the
+    adaLN then depends on the per-sample conditioning); None in 't_emb'
+    mode. block_key: the stream's block, 'context_block_low_res' for the
+    multi-resolution low-res context."""
     if cfg.time_adaln not in ("pos_emb", "pos_t_emb"):
         return None
     L = length if length is not None else cfg.register_length + cfg.K
@@ -334,8 +369,9 @@ def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None):
                                 device=params.context_pos_embed.device)
     mods = []
     for bp in list(params.joint_blocks)[:-1]:
-        t_emb = timestep_embedder_apply(bp.context_block.t_embedder, positions)
-        mods.append(t_emb if cfg.time_adaln == "pos_t_emb" else _adaln(bp.context_block, t_emb))
+        blk = getattr(bp, block_key)
+        t_emb = timestep_embedder_apply(blk.t_embedder, positions)
+        mods.append(t_emb if cfg.time_adaln == "pos_t_emb" else _adaln(blk, t_emb))
     return torch.stack(mods)
 
 
@@ -637,3 +673,127 @@ def renderer_apply(params: MMDiT, cfg: MMDiTConfig, encoder_hidden_states, mask=
     out = _trunk(params, cfg, context, x, c, ctx_mods, key_mask=key_mask,
                  ctx_key_mask=ctx_key_mask)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, grid, grid)
+
+
+# ---------------------------------------------------------------------------
+# multi-resolution MMDiT
+# ---------------------------------------------------------------------------
+
+def joint_block_apply_mr(bp: JointBlock, cfg: MMDiTConfig, context, x, c, c0, ctx_lowres=None,
+                         rec=None, pos_mods=None, lowres_pos_mods=None, mask=None, last=False):
+    """A JointBlock with the low-res context (a third query stream) and the
+    reconstruction stream: ``rec_block`` runs full self-attention over rec
+    at t = 0 (c0) and hands its keys and values to the joint attention,
+    whose rows are [context | x | low-res] and keys [context | x | low-res |
+    rec]. mask: the additive bias [B, 1, Lq, Lk]. Returns (context', x',
+    low-res', rec'), the streams of the last block None but x."""
+    ctx_qkv, ctx_inter = dismantled_pre_attention(
+        bp.context_block, cfg, context, c, pos_mods=None if last else pos_mods, pre_only=last)
+    x_qkv, x_inter = dismantled_pre_attention(bp.x_block, cfg, x, c)
+    qs, ks, vs = [ctx_qkv[0], x_qkv[0]], [ctx_qkv[1], x_qkv[1]], [ctx_qkv[2], x_qkv[2]]
+    if ctx_lowres is not None:
+        lr_qkv, lr_inter = dismantled_pre_attention(
+            bp.context_block_low_res, cfg, ctx_lowres, c,
+            pos_mods=None if last else lowres_pos_mods, pre_only=last)
+        qs.append(lr_qkv[0])
+        ks.append(lr_qkv[1])
+        vs.append(lr_qkv[2])
+    rec_out = None
+    if rec is not None:
+        r_qkv, r_inter = dismantled_pre_attention(bp.rec_block, cfg, rec, c0)
+        if not last:
+            rec_out = dismantled_post_attention(bp.rec_block, _merge_heads(sdpa(*r_qkv)), r_inter)
+        ks.append(r_qkv[1])
+        vs.append(r_qkv[2])
+    attn = _merge_heads(sdpa(torch.cat(qs, dim=2), torch.cat(ks, dim=2), torch.cat(vs, dim=2),
+                             mask=mask))
+    Lc, Lx = context.shape[1], x.shape[1]
+    new_x = dismantled_post_attention(bp.x_block, attn[:, Lc:Lc + Lx], x_inter)
+    if last:
+        return None, new_x, None, None
+    new_ctx = dismantled_post_attention(bp.context_block, attn[:, :Lc], ctx_inter)
+    new_lr = None
+    if ctx_lowres is not None:
+        new_lr = dismantled_post_attention(
+            bp.context_block_low_res, attn[:, Lc + Lx:Lc + Lx + ctx_lowres.shape[1]], lr_inter)
+    return new_ctx, new_x, new_lr, rec_out
+
+
+def build_multires_mask(token_mask, n_x, cmask, rec_mask, context_see_xt, context_see_rec):
+    """The full boolean mask [B, 1, Lq, Lk]: rows (context | x | low-res),
+    columns (tokens | x | low-res | rec). The context and low-res rows see x
+    under context_see_xt and rec under context_see_rec; the x rows see
+    every active key."""
+    B, K = token_mask.shape
+    Kl = cmask.shape[1]
+    dev = token_mask.device
+    ones_x = torch.ones((B, n_x), dtype=torch.bool, device=dev)
+    tok, cm = token_mask.bool(), cmask.bool()
+    ctx_cols = [tok, ones_x if context_see_xt else torch.zeros_like(ones_x), cm]
+    img_cols = [tok, ones_x, cm]
+    if rec_mask is not None:
+        rm = rec_mask.bool()
+        ctx_cols.append(rm if context_see_rec else torch.zeros_like(rm))
+        img_cols.append(rm)
+    ctx_cols, img_cols = torch.cat(ctx_cols, dim=1), torch.cat(img_cols, dim=1)
+    Lk = ctx_cols.shape[1]
+    rows = torch.cat([ctx_cols[:, None].expand(B, K, Lk), img_cols[:, None].expand(B, n_x, Lk),
+                      ctx_cols[:, None].expand(B, Kl, Lk)], dim=1)
+    return rows[:, None]
+
+
+def mmdit_multires_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
+                         hidden_states_low_res, low_res_latent, mask=None,
+                         context_lowres_mask=None, context_see_xt=False, context_see_rec=False,
+                         y=None):
+    """The multi-resolution MMDiT forward. x: NHWC noised latents; t: [B]
+    in [0, 1]; encoder_hidden_states [B, K, encoder_hidden_size] and mask
+    [B, K]; hidden_states_low_res [B, Kl, encoder_hidden_size] (Kl <= K) and
+    context_lowres_mask [B, Kl]; low_res_latent: the clean NHWC low-res
+    latent of the reconstruction stream (every rec key active); y: an
+    optional [B, hidden] conditioning. Activations take x's type. Returns
+    the NHWC velocity field."""
+    if cfg.time_adaln == "pos_t_emb":
+        raise NotImplementedError(
+            "pos_t_emb is not supported on the multires path (no reference "
+            "config combines them)")
+    B = x.shape[0]
+    xt, gh, gw = _embed_x(params, cfg, x)
+    lh, lw = low_res_latent.shape[1] // cfg.patch_size, low_res_latent.shape[2] // cfg.patch_size
+    rec = patch_embed_apply(params.x_embedder_clean, low_res_latent.to(xt.dtype))
+    rec = rec + crop_pos_embed(params.pos_embed, cfg.pos_embed_max_size, lh, lw).to(rec.dtype)
+    rec_mask = torch.ones((B, rec.shape[1]), dtype=torch.bool, device=x.device)
+
+    t1000 = t * 1000.0
+    c = timestep_embedder_apply(params.t_embedder, t1000).to(xt.dtype)
+    c0 = timestep_embedder_apply(params.t_embedder, torch.zeros_like(t1000)).to(xt.dtype)
+    context = linear_apply(params.context_embedder, encoder_hidden_states)
+    context = (context + params.context_pos_embed).to(xt.dtype)
+    Kl = hidden_states_low_res.shape[1]
+    ctx_lowres = linear_apply(params.context_embedder_low_res, hidden_states_low_res)
+    ctx_lowres = (ctx_lowres + params.context_pos_embed[:, :Kl]).to(xt.dtype)
+    if y is not None:
+        c = c + y
+    if mask is None:
+        mask = torch.ones((B, cfg.K), dtype=torch.bool, device=x.device)
+    cmask = context_lowres_mask if context_lowres_mask is not None else \
+        torch.ones((B, Kl), dtype=torch.bool, device=x.device)
+    full = build_multires_mask(mask, xt.shape[1], cmask, rec_mask, context_see_xt,
+                               context_see_rec)
+    bias = torch.where(full, 0.0, -1e30).to(torch.float32)
+
+    ctx_mods = lowres_mods = None
+    if cfg.time_adaln == "pos_emb":
+        ctx_mods = precompute_context_mods(params, cfg)[:, :context.shape[1]].to(xt.dtype)
+        lowres_mods = precompute_context_mods(params, cfg, length=Kl,
+                                              block_key="context_block_low_res").to(xt.dtype)
+    blocks = list(params.joint_blocks)
+    for i, bp in enumerate(blocks[:-1]):
+        context, xt, ctx_lowres, rec = joint_block_apply_mr(
+            bp, cfg, context, xt, c, c0, ctx_lowres=ctx_lowres, rec=rec,
+            pos_mods=None if ctx_mods is None else ctx_mods[i],
+            lowres_pos_mods=None if lowres_mods is None else lowres_mods[i], mask=bias)
+    _, xt, _, _ = joint_block_apply_mr(blocks[-1], cfg, context, xt, c, c0,
+                                       ctx_lowres=ctx_lowres, rec=rec, mask=bias, last=True)
+    out = final_layer_apply(params.final_layer, xt, c)
+    return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)

@@ -1,6 +1,7 @@
 """ImageTokenizer composite: config assembly, the module that holds the
 encoder and the decoder, reference state-dict loading and the training loss
-graphs (counterpart of the reference ``models/tokenizer.py``). The YAML
+graphs, and the multi-resolution tokenizer's loss (counterpart of the
+reference ``models/tokenizer.py``). The YAML
 ``tokenizer.params`` schema of the reference configs is consumed unchanged.
 
 The losses take every random draw of the reference as an optional input
@@ -23,6 +24,7 @@ from selftoktokenizer_tpu_torch.models.diti import make_diti
 from selftoktokenizer_tpu_torch.models.encoder import (
     EncoderConfig, QformerEncoder, _embed_patches, encoder_apply, get_encoder_mask,
     get_encoder_outs, patches_per_token)
+from selftoktokenizer_tpu_torch.models.dit import DiT
 from selftoktokenizer_tpu_torch.models.mmdit import (
     MMDiT, MMDiTConfig, mmdit_apply, renderer_apply)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm
@@ -120,7 +122,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
     fan-in bounds for matrices and conv kernels, std-0.02 normals for the
     timestep embedders and the query tokens, std hidden^-0.5 normals for the
     renderer's mask token and positional embedding, an l2-normalised
-    codebook, norm weights one, the sincos position tables as built.
+    codebook, norm weights one, the sincos position tables as built. It
+    takes any module of the port (the encoders, MMDiT, DiT, the text
+    encoders), whose embedding tables get the matrices' rule.
 
     The reference zero-initialises every adaLN projection, every bias and
     the zero-init encoder's ``gate`` (tanh(0) closes its image part), which
@@ -134,8 +138,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
         parent = name.rsplit(".", 1)[0] if "." in name else ""
         owner = module.get_submodule(parent)
         zero = False
-        if leaf == "context_pos_embed" or (leaf == "pos_embed"
-                                           and isinstance(owner, QformerEncoder)):
+        if leaf in ("context_pos_embed", "low_res_hidden_pos_embed") or (
+                leaf == "pos_embed" and isinstance(owner, (QformerEncoder, DiT))):
             continue                          # sincos tables, as built
         if name.endswith("_codebook.embed"):
             t.normal_(generator=generator)
@@ -335,3 +339,107 @@ def renderer_train_loss(model: MMDiT, encoder: QformerEncoder, cfg: TokenizerCon
     p = counts / torch.clamp(torch.sum(counts), min=1)
     ppl = torch.exp(-torch.sum(p * torch.log(p + 1e-10)))
     return loss, {"loss": loss.detach(), "recon_mse": loss.detach(), "batch_perplexity": ppl}
+
+
+# ---------------------------------------------------------------------------
+# the multi-resolution tokenizer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MultiTokenizerConfig:
+    """A dict of per-resolution encoders feeding one decoder with the token
+    streams interleaved. The reference's own implementation cannot run (it
+    unpacks a 5-tuple from an encoder that returns 7 and indexes shapes as
+    dicts); this is the loss graph it intends, as the JAX package has it."""
+    encoders: dict                     # resolution name -> EncoderConfig
+    decoder: MMDiTConfig
+    k: int
+    stages: Optional[str]
+    k_per_stage: Optional[str]
+    image_size: int
+    train_encoder_res: str
+    diffusion: dict
+    quantizer: dict
+
+    def make_diti(self):
+        return make_diti(self.k, self.stages, self.k_per_stage, None, None)
+
+
+class MultiImageTokenizer(nn.Module):
+    """``encoder.<resolution>.*`` (one QformerEncoder each) and ``model.*``
+    (the MMDiT over the K * R interleaved tokens)."""
+
+    def __init__(self, cfg: MultiTokenizerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = nn.ModuleDict({res: QformerEncoder(ec) for res, ec in cfg.encoders.items()})
+        self.model = MMDiT(cfg.decoder)
+
+
+def multi_tokenizer_loss(tok: MultiImageTokenizer, cfg: MultiTokenizerConfig, batch, rng=None,
+                         vq_states=None, full_tokens=False, t=None, noise=None, vq_draws=None):
+    """The multi-resolution tokenizer's training loss. batch: resolution
+    name -> NHWC latents; ``cfg.train_encoder_res`` names the diffusion
+    target, whose size sets the flow shift. Each encoder makes K tokens; the
+    streams are interleaved token-major (stacked on dim 2, then flattened)
+    into a K * R context, and the MMDiT sees it with ``context_see_xt``.
+
+    Every draw is an input: t [B] (uniform, before the shift), noise (the
+    target's shape, normal) and vq_draws, resolution name -> the keyword
+    draws of ``vq.vq_train_apply`` (kmeans_idx, react_uniforms,
+    gumbel_noise, warm_ids); what is not given comes from rng, a
+    torch.Generator. vq_states: resolution name -> VQState; with a state
+    the resolution's quantizer trains (EMA update, commitment and
+    diversity losses), without one it is the eval ``vq_apply``.
+    full_tokens: every token active. Returns (loss, {"log_dict",
+    "vq_states"}), the new states keyed by resolution (None where none was
+    given)."""
+    x = batch[cfg.train_encoder_res]
+    B, h, w, _ = x.shape
+    dev = x.device
+    if rng is None and (t is None or noise is None):
+        raise ValueError("pass rng (a torch.Generator) or t and noise")
+    if t is None:
+        t = torch.rand((B,), generator=rng, device=dev)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=rng, device=dev, dtype=x.dtype)
+    t, noise = t.to(dev), noise.to(dev)
+    diti = cfg.make_diti()
+    k_batch = diti.to_indices((torch.ones_like(t) if full_tokens else t) * 1000.0).to(dev)
+    t = flow_mod.shift_t(t, resolution_shift(h, w))
+
+    ehs_list, mask_list, new_states, log_dict = [], [], {}, {}
+    quan_loss = 0.0
+    for res, ecfg in cfg.encoders.items():
+        enc = tok.encoder[res]
+        outs = get_encoder_outs(enc, ecfg, _embed_patches(enc, ecfg, batch[res]))
+        if ecfg.pre_norm:
+            outs = layer_norm(outs, enc.final_layer_norm.weight, enc.final_layer_norm.bias)
+        st = vq_states.get(res) if vq_states else None
+        if st is not None:
+            draws = (vq_draws or {}).get(res, {})
+            outs_q, _, ql, new_st, vq_logs = vq_mod.vq_train_apply(
+                enc.quantizer, st, outs, cfg.quantizer, rng=rng, **draws)
+        else:
+            outs_q, _, ql, vq_logs = vq_mod.vq_apply(enc.quantizer, outs)
+            new_st = None
+        if ecfg.post_norm:
+            outs_q = layer_norm(outs_q, enc.final_layer_norm3.weight, enc.final_layer_norm3.bias)
+        enc_mask = get_encoder_mask(ecfg, k_batch)
+        ehs_list.append(outs_q * enc_mask[..., None].to(outs_q.dtype))
+        mask_list.append(enc_mask)
+        quan_loss = quan_loss + ql
+        log_dict[f"vq_{res}"] = vq_logs
+        new_states[res] = new_st
+    ehs = torch.stack(ehs_list, dim=2).reshape(B, -1, ehs_list[0].shape[-1])
+    mask = torch.stack(mask_list, dim=2).reshape(B, -1)
+
+    def model_fn(x_t, tt):
+        return mmdit_apply(tok.model, cfg.decoder, x_t, tt, ehs, mask=mask, context_see_xt=True)
+
+    terms = flow_mod.training_losses(
+        model_fn, x, t, noise, parameterization=cfg.diffusion.get("parameterization", "velocity"))
+    loss = torch.mean(terms["loss"]) + quan_loss
+    log_dict["loss"] = loss.detach()
+    log_dict["mse"] = torch.mean(terms["mse"]).detach()
+    return loss, {"log_dict": log_dict, "vq_states": new_states}

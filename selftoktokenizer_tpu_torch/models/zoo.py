@@ -1,6 +1,8 @@
 """Model registries: named encoder / decoder variants (counterpart of the
-reference ``models/zoo.py``). The registry lists every named variant; the
-multi-resolution encoder, not ported yet, raises here.
+reference ``models/zoo.py``). The registry lists every named variant. A
+multi-resolution entry builds an ordinary ``EncoderConfig``; its weights
+are ``encoder.QformerEncoderMultiRes``, which reads the ``low_res_*``
+fields.
 """
 
 from __future__ import annotations
@@ -65,10 +67,7 @@ def build_encoder_config(name, K, input_size, encoder_hidden_size, in_channels,
     """Named encoder -> EncoderConfig, folding in the per-run kwargs and the
     YAML encoder_config block."""
     spec = dict(ENC_MODELS[name])
-    if spec.pop("multires", None):
-        raise NotImplementedError(
-            f"the multi-resolution encoder {name!r} is not ported yet: ROADMAP.md "
-            "queue item 'Multires / DiT / DDPM / text encoders'")
+    spec.pop("multires", None)
     max_k = spec.pop("max_K", None)
     if max_k is not None:
         assert K <= max_k, f"{name} supports K up to {max_k}"

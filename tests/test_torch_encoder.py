@@ -1,6 +1,8 @@
 """DiTi maps, the VQ and the Qformer encoder of the PyTorch port against the
 JAX package, on the CPU at a small size with carried seeded weights."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
 from selftoktokenizer_tpu_torch.models import diti as t_diti
 from selftoktokenizer_tpu_torch.models import encoder as t_enc
 from selftoktokenizer_tpu_torch.models import flow as t_flow
+from selftoktokenizer_tpu_torch.models import mmdit as t_mm
 from selftoktokenizer_tpu_torch.models import vq as t_vq
 from selftoktokenizer_tpu_torch.models.tokenizer import (
     ImageTokenizer, tokenizer_config_from_params)
@@ -79,10 +82,13 @@ def test_flagship_config_objects_equal_jax():
 
 
 def test_out_of_slice_modes_raise_not_implemented():
-    """Of the zoo only the multi-resolution encoder is still out of the
-    port: it raises, naming its ROADMAP.md item. The bidirectional,
-    zero-init and plain-ViT encoders, the renderer and pooled conditioning
-    build (tests/test_torch_zoo_*.py hold them against JAX)."""
+    """Every named encoder of the zoo builds now, the multi-resolution one
+    too (its weights are ``QformerEncoderMultiRes``); what still raises
+    NotImplementedError is the option no reference config combines: the
+    multi-resolution MMDiT under 'pos_t_emb'. The bidirectional, zero-init
+    and plain-ViT encoders, the renderer and pooled conditioning build
+    (tests/test_torch_zoo_*.py and tests/test_torch_multires.py hold them
+    against JAX)."""
     params = dict(load_config(TINY).tokenizer.params)
     for enc, mode in (("Enc-Qformer-Bi-L/2", "dual"), ("Enc-Qformer-Uni0-WL/1", "dual"),
                       ("Enc-Tiny/8", "vit")):
@@ -93,8 +99,16 @@ def test_out_of_slice_modes_raise_not_implemented():
     cfg = tokenizer_config_from_params(dict(params, decoder_config=dict(
         params["decoder_config"], sd3_cond_pooling="last")))
     assert ImageTokenizer(cfg).model.y_embedder is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tokenizer_config_from_params(dict(params, enc="Enc-Qformer-Multi-Res-Uni-XL/2"))
+    cfg = tokenizer_config_from_params(dict(params, enc="Enc-Qformer-Multi-Res-Uni-XL/2"))
+    want = j_tokenizer_config(dict(j_load_config(TINY).tokenizer.params,
+                                   enc="Enc-Qformer-Multi-Res-Uni-XL/2")).encoder
+    assert dataclasses.asdict(cfg.encoder) == dataclasses.asdict(want)
+    assert len(t_enc.QformerEncoderMultiRes(cfg.encoder).blocks) == cfg.encoder.depth
+    dec = dataclasses.replace(cfg.decoder, depth=2, time_adaln="pos_t_emb")
+    with pytest.raises(NotImplementedError, match="pos_t_emb"):
+        t_mm.mmdit_multires_apply(t_mm.MMDiT(dec, multires=True), dec, torch.zeros(1, 8, 8, 16),
+                             torch.zeros(1), torch.zeros(1, dec.K, 16),
+                             torch.zeros(1, dec.K, 16), torch.zeros(1, 4, 4, 16))
 
 
 # --------------------------------------------------------------- encoder --

@@ -151,9 +151,15 @@ def test_every_named_encoder_builds_as_in_jax(name):
 
 
 def test_multires_encoder_still_raises():
-    with pytest.raises(NotImplementedError, match="multi-resolution"):
-        t_zoo.build_encoder_config("Enc-Qformer-Multi-Res-Uni-XL/2", 32, 32, 16, 16,
-                                   {"code_dim": 16, "codebook_size": 64})
+    """The multi-resolution entry no longer raises: both packages build the
+    same config from it, and the port's multi-resolution encoder takes it
+    (tests/test_torch_multires.py holds that encoder against JAX)."""
+    args = ("Enc-Qformer-Multi-Res-Uni-XL/2", 32, 32, 16, 16,
+            {"code_dim": 16, "codebook_size": 64})
+    cfg = t_zoo.build_encoder_config(*args)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_zoo.build_encoder_config(*args))
+    enc = t_enc.QformerEncoderMultiRes(cfg)
+    assert len(enc.blocks) == cfg.depth == 16
 
 
 # ------------------------------------------------------------ vit training --
