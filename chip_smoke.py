@@ -20,8 +20,30 @@ drives the sixth slice's models at full width in fp32: the multi-resolution
 encoder (its vq_argmax ids against the plain run), the multi-resolution
 MMDiT (bf16 against fp32), the multi-resolution tokenizer's loss and
 gradients (against the plain run), DiT-XL/2 with the DDPM loss and samplers,
-and the SD3 text encoders. Each path runs with every launch count set to 0
-just before it and read just after.
+and the SD3 text encoders. Phase "corpus" then reads image files and
+scores reconstructions through the port's tools at the flagship widths: it
+writes 64 images of mixed sizes and modes (RGB, grayscale, RGBA and palette
+PNG from the standard library's writer, JPEG when PIL is installed) and two
+tar shards of them; runs ``tools/tokenize_corpus.py``'s ``main`` over the
+folder and the shards at batch 32, 'highest' and 'default' and once with
+``--margin-stats``, from an encoder ``.pth`` and a VAE ``.pt`` of the
+seeded weights, and holds each row's ids (and margins) equal to the
+pipeline's own encode of the same batches of the same pixels; times the
+tool, the encode alone, the loader alone and the device's busy share of the
+tool's loop; runs ``tools/eval_recon.py``'s loop with the 'random'
+Inception and LPIPS nets over 16 images through the bf16 renderer and 4
+through the 50-step bf16 decode (PSNR and SSIM equal to ``utils.metrics``
+on the same reconstructions, LPIPS(x, x) = 0, Inception features and LPIPS
+on the card within 1e-3 of their scale of the CPU's, the global TF32 flags
+unchanged) and times Inception (batch 32) and LPIPS (batch 8); and runs
+``tools/smoke.py`` on one image (a 256 x 256 PNG). It prints ``loader:``
+with the reason, decided from what is installed before anything runs:
+``native`` where a C++ compiler finds ``jpeglib.h`` and ``png.h`` (a failed
+build of the C++ loader fails the phase), ``pil`` where it does not and PIL
+is installed, ``arrays`` where neither is (the tools' loops are fed 256 x
+256 arrays made in memory, and the smoke tool, which reads and writes files,
+does not run). Each path runs with every launch count set to 0 just before
+it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -33,8 +55,8 @@ last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
 ``--only kernels`` stops after the kernel phase, ``--only train``,
-``--only zoo`` and ``--only families`` run that phase alone (no kernel
-line, no final line); ``--ptxas`` prints the
+``--only zoo``, ``--only families`` and ``--only corpus`` run that phase
+alone (no kernel line, no final line); ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
 torch.profiler pass over one warm bf16 decode, one warm int8 decode, one
 extra tokenizer and renderer train step and the zoo's two forms of a CFG
@@ -1956,6 +1978,401 @@ def families_phase(card, do_profile=False):
     return by_path
 
 
+# ---------------------------------------------------------------- corpus ---
+
+CORPUS_N = 64
+CORPUS_BATCH = 32
+# (width, height): landscape, portrait, square, odd sizes, downscales of 2.5x
+CORPUS_SIZES = [(300, 200), (512, 384), (256, 256), (200, 300), (384, 512), (640, 480),
+                (257, 255), (333, 222)]
+# card Inception features and LPIPS against the same module on the CPU, as a
+# fraction of the CPU result's largest value: TF32 leaking in would put them
+# near 1e-3 of their scale per layer, exact fp32 lies near 1e-6
+EVAL_CPU_TOL = 1e-3
+EVAL_RENDER = (16, 8)       # (images, batch) through the bf16 renderer
+EVAL_DECODE = (4, 2)        # (images, batch) through the 50-step bf16 decode
+
+
+def write_png(path, arr, palette=None):
+    """A PNG from uint8 HxW (gray; palette indices with ``palette`` [n, 3]),
+    HxWx3 (RGB) or HxWx4 (RGBA), with the standard library only."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    ctype = 3 if palette is not None else {2: 0, 3: 2}.get(arr.ndim, 0)
+    if arr.ndim == 3 and arr.shape[2] == 4:
+        ctype = 6
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    if palette is not None:
+        png += chunk(b"PLTE", palette.astype("uint8").tobytes())
+    png += chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(png)
+
+
+def png_size(path):
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path} is no PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def corpus_pattern(rng, h, w):
+    """uint8 [h, w, 3]: blocks of 32 pixels with noise on top (something a
+    JPEG coder and a resize have to work on)."""
+    import numpy as np
+
+    g = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3)).astype(np.float32)
+    img = np.kron(g, np.ones((32, 32, 1), np.float32))[:h, :w] + rng.normal(0, 12, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def corpus_loader():
+    """(loader, reason), decided from what is installed before anything runs."""
+    import importlib.util
+
+    from selftoktokenizer_tpu_torch.data import native
+
+    if native.native_available():
+        return "native", "a C++ compiler finds jpeglib.h and png.h"
+    if importlib.util.find_spec("PIL") is not None:
+        return "pil", "no C++ compiler with jpeglib.h and png.h; PIL is installed"
+    return "arrays", "neither the libjpeg / libpng headers nor PIL is installed"
+
+
+def make_corpus(root, loader):
+    """64 images of mixed sizes and modes under root/imgs (PNG from the
+    standard library's writer: RGB, grayscale, RGBA, palette; JPEG through
+    PIL when it is there) and two tar shards of them under root/shards.
+    Returns (sorted image paths, shard dir)."""
+    import os
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    img_dir, shard_dir = os.path.join(root, "imgs"), os.path.join(root, "shards")
+    os.makedirs(img_dir)
+    os.makedirs(shard_dir)
+    kinds = ["rgb", "gray", "rgba", "palette"] + (["jpeg"] if loader != "arrays" else [])
+    for i in range(CORPUS_N):
+        w, h = CORPUS_SIZES[i % len(CORPUS_SIZES)]
+        kind = kinds[i % len(kinds)]
+        rgb = corpus_pattern(rng, h, w)
+        p = os.path.join(img_dir, f"im{i:03d}_{kind}.{'jpg' if kind == 'jpeg' else 'png'}")
+        if kind == "jpeg":
+            from PIL import Image
+
+            Image.fromarray(rgb).save(p, quality=90)
+        elif kind == "gray":
+            write_png(p, rgb[..., 0])
+        elif kind == "rgba":
+            write_png(p, np.concatenate([rgb, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], -1))
+        elif kind == "palette":
+            write_png(p, (rgb[..., 0] // 8).astype(np.uint8),
+                      palette=rng.integers(0, 256, (32, 3), dtype=np.uint8))
+        else:
+            write_png(p, rgb)
+    paths = sorted(os.path.join(img_dir, n) for n in os.listdir(img_dir))
+    half = len(paths) // 2
+    for s, chunk in enumerate((paths[:half], paths[half:])):
+        with tarfile.open(os.path.join(shard_dir, f"shard-{s:04d}.tar"), "w") as tf:
+            for p in chunk:
+                tf.add(p, arcname=os.path.basename(p))
+    return paths, shard_dir
+
+
+def corpus_rows(names, loader, shard_dir):
+    """The pixels of the tool's rows by the tool's own loader, in its order."""
+    import os
+    import tarfile
+
+    import numpy as np
+
+    from selftoktokenizer_tpu_torch.data import native
+    from selftoktokenizer_tpu_torch.tools import common
+
+    by_bytes = native.preprocess_bytes if loader == "native" else common.pil_bytes
+    out = []
+    for n in names:
+        n = str(n)
+        if n.startswith("shard-"):
+            shard, member = n.split("/", 1)
+            with tarfile.open(os.path.join(shard_dir, shard + ".tar")) as tf:
+                out.append(by_bytes(tf.extractfile(member).read(), 256))
+        else:
+            out.append(common.load_fn(loader)(n, 256))
+    return np.concatenate(out)
+
+
+def corpus_tokenize_path(card, pipe, files, paths, shard_dir, loader, tmp):
+    """tokenize_corpus.main over the folder and the shards at batch 32,
+    'highest' and 'default', and once with --margin-stats; each row's ids
+    against the pipeline's own encode of the same batches of the same
+    pixels (equal)."""
+    import os
+
+    import numpy as np
+
+    from selftoktokenizer_tpu_torch.tools import common, tokenize_corpus
+
+    runs = [("folder", "highest", False), ("folder", "default", False),
+            ("shards", "highest", False), ("folder", "highest", True)]
+    lines = []
+    if loader == "arrays":
+        # no decoder at all: the tool's loop over arrays made in memory
+        rng = np.random.default_rng(12)
+        imgs = np.stack([corpus_pattern(rng, 256, 256) for _ in range(CORPUS_N)])
+        imgs = imgs.astype(np.float32) / 127.5 - 1.0
+        names = np.asarray([f"array{i}" for i in range(CORPUS_N)])
+        batches = [(imgs[i:i + CORPUS_BATCH], names[i:i + CORPUS_BATCH])
+                   for i in range(0, CORPUS_N, CORPUS_BATCH)]
+        reset_counts()
+        for _, prec, margins in runs:
+            pipe.encode_precision = prec
+            res = tokenize_corpus.tokenize(pipe, batches, margin_stats=margins)
+            lines.append((res, imgs))
+        pipe.encode_precision = "highest"
+        c = counts()
+    else:
+        reset_counts()
+        for i, (src, prec, margins) in enumerate(runs):
+            out = os.path.join(tmp, f"tokens{i}.npz")
+            argv = [*files, "--data-dir", os.path.dirname(paths[0]) if src == "folder"
+                    else shard_dir, "--out", out, "--batch-size", str(CORPUS_BATCH),
+                    "--encode-precision", prec] + (["--margin-stats"] if margins else [])
+            line = tokenize_corpus.main(argv)
+            if line["loader"] != loader or line["n"] != CORPUS_N:
+                raise RuntimeError(f"tokenize_corpus {src} {prec}: {line}")
+            z = np.load(out)
+            res = {"tokens": z["tokens"], "paths": z["paths"],
+                   "margins": z["margins"] if margins else None, "line": line}
+            lines.append((res, None))
+        c = counts()
+    for (res, arrays), (src, prec, margins) in zip(lines, runs):
+        pixels = arrays if arrays is not None else corpus_rows(res["paths"], loader, shard_dir)
+        want_ids, want_m = [], []
+        for i in range(0, CORPUS_N, CORPUS_BATCH):
+            x = torch.from_numpy(pixels[i:i + CORPUS_BATCH]).cuda()
+            if margins:
+                ids, m = pipe.encoding_margins(x)
+                want_m.append(m.cpu().numpy())
+            else:
+                ids = pipe.encoding(x, precision=prec)
+            want_ids.append(ids.cpu().numpy())
+        if not np.array_equal(res["tokens"], np.concatenate(want_ids)):
+            raise RuntimeError(f"tokenize_corpus {src} {prec}: ids differ from the pipeline's "
+                               "encode of the same rows")
+        if margins and not np.array_equal(res["margins"], np.concatenate(want_m)):
+            raise RuntimeError("tokenize_corpus --margin-stats: margins differ from the pipeline's")
+        if arrays is None:
+            line = res["line"]
+            log(f"  tokenize_corpus {src} {prec}{' --margin-stats' if margins else ''}: "
+                f"{line['images_per_s']} images/s over the tool's loop (its encodes "
+                f"{line['encode_images_per_s']} images/s; device busy "
+                f"{line['device_busy_share']} of the loop), loader {line['loader']}, ids "
+                f"equal to the pipeline's encode of the same rows ({CORPUS_N} x {pipe.K})"
+                + (f", margin min {line['margin_stats']['min']}" if margins else "")
+                + f" on {card}")
+        else:
+            log(f"  tokenize loop {prec} over arrays: {res['n'] / res['wall_s']} images/s, "
+                f"device busy {res['device_s'] and res['device_s'] / res['wall_s']}, ids "
+                f"equal to the pipeline's encode on {card}")
+    # the parts alone: the encode at batch 32 and the loader with 4 threads
+    x32 = torch.from_numpy(corpus_rows(lines[0][0]["paths"][:CORPUS_BATCH], loader, shard_dir)
+                           if loader != "arrays" else lines[0][1][:CORPUS_BATCH]).cuda()
+    w_hi = warm(lambda: pipe.encoding(x32), 3)
+    w_def = warm(lambda: pipe.encoding(x32, precision="default"), 3)
+    log(f"  encode alone, batch {CORPUS_BATCH}: 'highest' {CORPUS_BATCH / w_hi:.2f} images/s "
+        f"({w_hi * 1e3:.1f} ms), 'default' {CORPUS_BATCH / w_def:.2f} images/s "
+        f"({w_def * 1e3:.1f} ms) on {card}")
+    if loader != "arrays":
+        t0 = time.time()
+        n = sum(len(names) for _, names in common.file_batches(paths, 256, CORPUS_BATCH, loader))
+        t = time.time() - t0
+        log(f"  loader alone ({loader}{', 4 threads' if loader == 'native' else ', one thread'}): "
+            f"{n / t:.2f} images/s ({n} images of {len(CORPUS_SIZES)} sizes up to 640 x 480, "
+            f"{t:.2f} s) on {card}")
+    return c
+
+
+def corpus_eval_path(card, loader, paths):
+    """eval_recon's loop with the 'random' Inception and LPIPS nets: 16
+    images through the bf16 renderer at batch 8, 4 through the 50-step bf16
+    decode at batch 2; its PSNR / SSIM against utils.metrics on the same
+    reconstructions, LPIPS(x, x) = 0, the card's Inception and LPIPS against
+    the CPU's, the TF32 flags unchanged; Inception (batch 32, 299 px) and
+    LPIPS (batch 8, 256 px) timed."""
+    import copy
+
+    import numpy as np
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, FLAGSHIP_RENDERER_CONFIG
+    from selftoktokenizer_tpu_torch.tools import common, eval_recon
+    from selftoktokenizer_tpu_torch.utils.metrics import psnr as m_psnr, ssim as m_ssim
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    fid_net, lpips_net = eval_recon.build_eval_nets("random", "random", "cuda")
+    rng = np.random.default_rng(13)
+
+    def batches(n, b):
+        if loader == "arrays":
+            imgs = np.stack([corpus_pattern(rng, 256, 256) for _ in range(n)])
+            imgs = imgs.astype(np.float32) / 127.5 - 1.0
+            return [(imgs[i:i + b], np.arange(i, i + b)) for i in range(0, n, b)]
+        return common.file_batches(paths[:n], 256, b, loader)
+
+    total = (0, 0, 0, 0)
+    kept = None
+    for label, cfg, (n, b), renderer in (
+            ("renderer bf16", FLAGSHIP_RENDERER_CONFIG, EVAL_RENDER, True),
+            ("50-step decode bf16", FLAGSHIP_CONFIG, EVAL_DECODE, False)):
+        pipe = build_pipeline(cfg, torch.bfloat16)
+        check_decoder_widths(pipe, renderer=renderer)
+        seen = []
+        reset_counts()
+        t0 = time.time()
+        res = eval_recon.evaluate(pipe, batches(n, b), renderer=renderer, fid_net=fid_net,
+                                  lpips_net=lpips_net,
+                                  on_batch=lambda a, r, names: seen.append((a, r)))
+        t = time.time() - t0
+        c = counts()
+        total = tuple(x + y for x, y in zip(total, c))
+        if c[0] < 1 or c[1] < 1:
+            raise RuntimeError(f"eval_recon {label}: launch counts {c}")
+        if res["n"] != n or not all(math.isfinite(res[k]) for k in ("psnr", "ssim", "rfid", "lpips")):
+            raise RuntimeError(f"eval_recon {label}: {res}")
+        ref = torch.cat([a for a, _ in seen])
+        rec = torch.cat([r for _, r in seen])
+        check_images(rec, n)
+        p = float(m_psnr(rec, ref).double().mean())
+        s = float(m_ssim(rec, ref).double().mean())
+        if abs(p - res["psnr"]) > 1e-6 * abs(p) or abs(s - res["ssim"]) > 1e-6 * max(abs(s), 1.0):
+            raise RuntimeError(f"eval_recon {label}: psnr / ssim {res['psnr']} / {res['ssim']} "
+                               f"differ from utils.metrics' {p} / {s}")
+        log(f"  eval_recon {label}: {n} images at batch {b} in {t:.1f} s, "
+            f"{res['images_per_s']:.3f} images/s after the first batch; psnr {res['psnr']:.3f} "
+            f"ssim {res['ssim']:.4f} lpips {res['lpips']:.4f} rfid {res['rfid']:.4g} "
+            f"(random nets: plumbing, not quality), equal to utils.metrics on the same "
+            f"reconstructions; launches {c} on {card}")
+        if kept is None:
+            kept = (ref[:4].clone(), rec[:4].clone())
+        del pipe, seen, ref, rec
+        release()
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != flags:
+        raise RuntimeError("the evaluation changed the global TF32 flags")
+    ref, rec = kept
+    same = lpips_net(ref, ref)
+    if float(same.abs().max()) != 0.0:
+        raise RuntimeError(f"LPIPS of an image with itself is {same.tolist()}, not 0")
+    # the card against the CPU, same weights and inputs: TF32 leaking in shows here
+    with torch.no_grad():
+        f_gpu, l_gpu = fid_net(rec).cpu(), lpips_net(rec, ref).cpu()
+        f_cpu = copy.deepcopy(fid_net).cpu()(rec.cpu())
+        l_cpu = copy.deepcopy(lpips_net).cpu()(rec.cpu(), ref.cpu())
+    ef = float((f_gpu - f_cpu).abs().max() / f_cpu.abs().max())
+    el = float((l_gpu - l_cpu).abs().max() / l_cpu.abs().max())
+    log(f"  Inception features card vs CPU: {ef:.3g} of their scale; LPIPS {el:.3g} "
+        f"(limit {EVAL_CPU_TOL}); global TF32 flags unchanged {flags}")
+    if ef > EVAL_CPU_TOL or el > EVAL_CPU_TOL:
+        raise RuntimeError(f"card Inception / LPIPS differ from the CPU by {ef} / {el}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    x32 = torch.rand((32, 299, 299, 3), generator=gen, device="cuda")
+    a8, b8 = (torch.rand((8, 256, 256, 3), generator=gen, device="cuda") for _ in range(2))
+    with torch.no_grad():
+        t_inc = time_ms(lambda: fid_net(x32), warmup=2, reps=3, rounds=3, hold=False)
+        t_lp = time_ms(lambda: lpips_net(a8, b8), warmup=2, reps=3, rounds=3, hold=False)
+    log(f"  Inception pool3, batch 32, 299 px: {t_inc:.2f} ms; LPIPS-VGG16, batch 8, "
+        f"256 px: {t_lp:.2f} ms (fp32, TF32 off) on {card}")
+    return total
+
+
+def corpus_smoke_path(card, paths, tmp):
+    """tools/smoke.py on one image of the corpus: the flagship, 50 bf16
+    steps; the PNG it writes must be 256 x 256."""
+    import os
+
+    from selftoktokenizer_tpu_torch.tools import smoke
+
+    out = os.path.join(tmp, "smoke")
+    reset_counts()
+    t0 = time.time()
+    written = smoke.main(["--image", paths[1], "--out-dir", out, "--zero-init-std", "0.02"])
+    t = time.time() - t0
+    c = counts()
+    if len(written) != 1 or png_size(written[0]) != (256, 256):
+        raise RuntimeError(f"smoke wrote {written}")
+    if c[0] != 1 or c[1] < 1:
+        raise RuntimeError(f"smoke launch counts {c}")
+    log(f"  smoke: {os.path.basename(paths[1])} -> {os.path.basename(written[0])} "
+        f"(256 x 256) in {t:.1f} s, the pipeline's build included; launches {c} on {card}")
+    release()
+    return c
+
+
+def corpus_phase(card, do_profile=False):
+    """The seventh slice: images in, ids and quality numbers out, through
+    the tools at the flagship widths on seeded weights."""
+    import os
+    import shutil
+    import tempfile
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG
+
+    loader, reason = corpus_loader()
+    log(f"  loader: {loader} ({reason})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    by_path = {}
+    try:
+        paths, shard_dir = (make_corpus(tmp, loader) if loader != "arrays" else ([], None))
+        if loader == "native":
+            from selftoktokenizer_tpu_torch.data import native
+
+            t0 = time.time()
+            native.load_library()      # a failed build raises: the phase fails
+            log(f"  C++ loader built in {time.time() - t0:.1f} s")
+        # the flagship's encoder and VAE as the files a user passes
+        pipe = build_pipeline(FLAGSHIP_CONFIG, torch.float32, encode_only=True)
+        tok_pth, vae_pt = os.path.join(tmp, "encoder.pth"), os.path.join(tmp, "vae.pt")
+        torch.save({"encoder." + k: v.cpu() for k, v in pipe.encoder.state_dict().items()},
+                   tok_pth)
+        torch.save({k: v.cpu() for k, v in pipe.vae.state_dict().items()}, vae_pt)
+        files = ["--pretrained", tok_pth, "--vae-path", vae_pt]
+        t0 = time.time()
+        by_path["corpus tokenize_corpus"] = corpus_tokenize_path(
+            card, pipe, files, paths, shard_dir, loader, tmp)
+        log(f"  corpus tokenize_corpus: {time.time() - t0:.1f} s")
+        del pipe
+        release()
+        t0 = time.time()
+        by_path["corpus eval_recon"] = corpus_eval_path(card, loader, paths)
+        log(f"  corpus eval_recon: {time.time() - t0:.1f} s")
+        if loader == "arrays":
+            log("  smoke tool: not run (it reads an image file and writes a PNG, and neither "
+                "the C++ loader nor PIL is installed)")
+        else:
+            t0 = time.time()
+            by_path["corpus smoke"] = corpus_smoke_path(card, paths, tmp)
+            log(f"  corpus smoke: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, c in by_path.items():
+        if c[0] < 1 or c[1] < 1:
+            raise RuntimeError(f"{label}: vq_argmax / attention launches {c[:2]}")
+    return by_path
+
+
 # ----------------------------------------------------------------- train ---
 
 TRAIN_BATCH = 4
@@ -2555,6 +2972,8 @@ def main_path_phase(card, do_profile=False):
     by_path.update(zoo_phase(card, do_profile))
     log("phase families:")
     by_path.update(families_phase(card, do_profile))
+    log("phase corpus:")
+    by_path.update(corpus_phase(card, do_profile))
     log("phase train:")
     by_path.update(train_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
@@ -2567,9 +2986,10 @@ def main_path_phase(card, do_profile=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["kernels", "train", "zoo", "families"], default=None,
-                    help="stop after the kernel phase, or run the train, the zoo or the "
-                         "families phase alone")
+    ap.add_argument("--only", choices=["kernels", "train", "zoo", "families", "corpus"],
+                    default=None,
+                    help="stop after the kernel phase, or run the train, the zoo, the "
+                         "families or the corpus phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -2597,9 +3017,10 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only in ("train", "zoo", "families"):
+    if args.only in ("train", "zoo", "families", "corpus"):
         log(f"phase {args.only}:")
-        phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase}[args.only]
+        phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase,
+                 "corpus": corpus_phase}[args.only]
         paths = phase(card, args.profile)
         by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
         log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")

@@ -3,8 +3,8 @@
 ``tokenizer_from_jax_tree`` and ``vae_from_jax_tree`` (and the
 ``*_from_jax_tree`` of every other model: the multi-resolution encoder and
 MMDiT, the multi-resolution tokenizer, DiT and its two block variants,
-CLIP, T5) take the nested dicts that the reference package's ``*_init``
-functions return, with
+CLIP, T5, the Inception-V3 and LPIPS-VGG16 evaluation nets) take the nested
+dicts that the reference package's ``*_init`` functions return, with
 every leaf already a numpy array (the caller converts with ``np.asarray``),
 and load them into the port's modules. The layout differences are undone
 here: ``[in, out]`` matmul weights -> ``[out, in]``, HWIO conv kernels ->
@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from selftoktokenizer_tpu_torch.eval import inception as inception_mod
+from selftoktokenizer_tpu_torch.eval import lpips as lpips_mod
 from selftoktokenizer_tpu_torch.models import dit as dit_mod
 from selftoktokenizer_tpu_torch.models import text_encoders as te
 from selftoktokenizer_tpu_torch.models.encoder import QformerEncoderMultiRes
@@ -424,3 +426,54 @@ def vae_from_jax_tree(tree, vae_cfg: VAEConfig = None) -> SDVAE:
     vae = SDVAE(vae_cfg)
     vae.load_state_dict(vae_state_dict(tree), strict=True)
     return vae
+
+
+def _conv_bn(out, prefix, p):
+    out[prefix + ".conv.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    for name, leaf in (("weight", "bn_w"), ("bias", "bn_b"), ("running_mean", "bn_m"),
+                       ("running_var", "bn_v")):
+        out[f"{prefix}.bn.{name}"] = _t(p[leaf])
+
+
+def inception_state_dict(tree):
+    """The reference's Inception tree ({name: {'w' HWIO, 'bn_w', 'bn_b',
+    'bn_m', 'bn_v'}}, the Mixed blocks one level deeper) -> torchvision
+    names."""
+    out = {}
+    for name, node in tree.items():
+        if "w" in node:
+            _conv_bn(out, name, node)
+        else:
+            for branch, p in node.items():
+                _conv_bn(out, f"{name}.{branch}", p)
+    return out
+
+
+def inception_from_jax_tree(tree, fid_variant=True) -> inception_mod.InceptionV3Pool3:
+    """The reference's ``inception_init`` / ``inception_from_state_dict``
+    tree -> InceptionV3Pool3 (CPU, fp32)."""
+    model = inception_mod.InceptionV3Pool3(fid_variant=fid_variant)
+    model.load_state_dict(inception_state_dict(tree), strict=True)
+    return model
+
+
+def lpips_state_dict(tree):
+    """The reference's LPIPS tree ({'convs': {idx: {'w' HWIO, 'b'}}, 'lins':
+    {i: [C]}}) -> the lpips package's names, with the scaling constants."""
+    out = {"scaling_layer.shift": _t(lpips_mod.SHIFT)[None, :, None, None],
+           "scaling_layer.scale": _t(lpips_mod.SCALE)[None, :, None, None]}
+    for idx, p in tree["convs"].items():
+        pre = f"net.slice{lpips_mod.slice_of(int(idx))}.{idx}"
+        out[pre + ".weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+        out[pre + ".bias"] = _t(p["b"])
+    for i, w in tree["lins"].items():
+        out[f"lin{i}.model.1.weight"] = _t(np.asarray(w).reshape(1, -1, 1, 1))
+    return out
+
+
+def lpips_from_jax_tree(tree) -> lpips_mod.LPIPS:
+    """The reference's ``lpips_init`` / ``lpips_from_state_dict`` tree ->
+    LPIPS (CPU, fp32)."""
+    model = lpips_mod.LPIPS()
+    model.load_state_dict(lpips_state_dict(tree), strict=True)
+    return model

@@ -7,6 +7,11 @@ and a build takes seconds. One shared library per source, keyed by a hash of
 the source and the flags, under ``selftoktokenizer_tpu_torch/build/``. A
 build or load failure raises; nothing here falls back to another
 implementation.
+
+The host-side image loader (``csrc/dataloader.cc``, C++ with libjpeg and
+libpng) is built the same way with ``g++`` (``build_host``), at first use by
+``data/native.py`` and not by ``build_all``: a machine without the codec
+headers still builds and runs the kernels.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 KERNEL_SOURCES = ("vq_argmax", "flash_attention", "q8_matmul", "conv3ch")
+
+# the host library's flags and libraries, as the reference's native/Makefile
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
 
 _libs = {}
 _lock = threading.Lock()
@@ -64,12 +72,12 @@ def _sources(path, seen=None):
     return parts
 
 
-def _target(name):
+def _target(name, src=None, flags=NVCC_FLAGS):
     """(source path, library path): the library's name carries a hash of the
     source, the headers it includes and the flags, so a change to any of
     them builds anew."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    digest = hashlib.sha256(b"".join(_sources(src)) + " ".join(NVCC_FLAGS).encode())
+    src = src or os.path.join(CSRC_DIR, name + ".cu")
+    digest = hashlib.sha256(b"".join(_sources(src)) + " ".join(flags).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -122,3 +130,36 @@ def load(name):
             lib = ctypes.CDLL(out)
             _libs[name] = lib
     return lib
+
+
+def cxx():
+    """The host C++ compiler: ``$CXX``, else ``g++``, on PATH; None when
+    neither is there."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
+def build_host(src, libs=()):
+    """Build the host C++ source ``src`` into a shared library under
+    ``build/`` (unless the library for these bytes and flags exists) and
+    return its path. A failed build raises with the compiler's message."""
+    exe = cxx()
+    if exe is None:
+        raise RuntimeError("no C++ compiler found ($CXX or g++ on PATH): "
+                           f"{os.path.basename(src)} is built at first use")
+    name = os.path.splitext(os.path.basename(src))[0]
+    flags = [*CXX_FLAGS, *libs]
+    src, out = _target(name, src, flags)
+    with _lock:
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([exe, *CXX_FLAGS, src, "-o", tmp, *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"{os.path.basename(exe)} failed for {src}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out

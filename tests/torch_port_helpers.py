@@ -295,3 +295,56 @@ def run_ranks(worker_src, tmp_path, world=2, timeout=120, args=()):
     assert not timed_out, f"ranks killed after {timeout} s\n{report}"
     assert all(p.returncode == 0 for p in procs), report
     return outs
+
+
+def seeded_inception_sd(seed):
+    """Every entry of a pytorch-fid Inception3 state dict, seeded: the
+    pool3 weights (conv 1.4 n / sqrt(fan_in), BatchNorm statistics and
+    affine near their identity) plus the entries the port ignores (fc,
+    AuxLogits, num_batches_tracked)."""
+    from selftoktokenizer_tpu_torch.eval.inception import InceptionV3Pool3
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in InceptionV3Pool3().state_dict().items():
+        shape = tuple(v.shape)
+        n = rng.standard_normal(shape).astype(np.float32)
+        if k.endswith("conv.weight"):
+            a = 1.4 * n / np.sqrt(np.prod(shape[1:]))
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif k.endswith("bn.weight"):
+            a = 1.0 + 0.1 * n
+        else:
+            a = 0.1 * n
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+        if k.endswith("running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(100)
+    sd["fc.weight"] = torch.zeros(1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
+    sd["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)
+    return sd
+
+
+def seeded_lpips_sd(seed):
+    """An lpips-package LPIPS(net='vgg') state dict, seeded, with the
+    scaling layer's buffers and the package's ``lins.*`` aliases."""
+    from selftoktokenizer_tpu_torch.eval.lpips import LPIPS
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in LPIPS().state_dict().items():
+        shape = tuple(v.shape)
+        n = rng.standard_normal(shape).astype(np.float32)
+        if k.startswith("scaling_layer."):
+            a = v.numpy()
+        elif k.startswith("lin"):
+            a = np.abs(0.1 * n)
+        elif k.endswith("weight"):
+            a = 1.4 * n / np.sqrt(np.prod(shape[1:]))
+        else:
+            a = 0.02 * n
+        sd[k] = torch.from_numpy(np.asarray(a, np.float32))
+    for i in range(5):
+        sd[f"lins.{i}.model.1.weight"] = sd[f"lin{i}.model.1.weight"]
+    return sd
