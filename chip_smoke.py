@@ -42,8 +42,24 @@ with the reason, decided from what is installed before anything runs:
 build of the C++ loader fails the phase), ``pil`` where it does not and PIL
 is installed, ``arrays`` where neither is (the tools' loops are fed 256 x
 256 arrays made in memory, and the smoke tool, which reads and writes files,
-does not run). Each path runs with every launch count set to 0 just before
-it and read just after.
+does not run). Phase "drivers" then runs the training drivers through
+their ``main`` in a temporary directory, at the flagship widths: 40
+``gen_corpus`` textures at 256 px; ``train_vae`` (the SD3 VAE at its
+widths, 5 steps at batch 8 in bf16, a held-out split) and
+``encode_corpus`` with its checkpoint; ``train_tokenizer`` at full depth
+(batch 4, fp32 with TF32 off, an EMA copy, 4 steps, 8-step eval decodes
+of the held-out rows at steps 0, 2 and 4 with the image-space eval),
+its metrics read back through ``tools/summarize_convergence.py``; the file
+round trip with MMDiT_XL cut to depth 2 at width 1536 (4 steps straight
+against 2 + a checkpoint + a resume, the final loss within 1e-4 relative;
+``convert_ckpt export`` and ``export --ema``; ``SelftokPipeline`` from the
+export, every leaf bit-equal to the state's and the encode's ids equal to
+the state's encoder's under the 1e-6 margin rule; ``certify_tiers``;
+``train_renderer`` from the export; ``demo_e2e`` over the three
+checkpoints); ``train_renderer`` at full depth (3 steps at batch 4, fp32).
+It prints each driver's wall, peak memory, warm steps/s and the device's
+busy share of its step loop. Each path runs with every launch count set to
+0 just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -55,8 +71,8 @@ last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
 ``--only kernels`` stops after the kernel phase, ``--only train``,
-``--only zoo``, ``--only families`` and ``--only corpus`` run that phase
-alone (no kernel line, no final line); ``--ptxas`` prints the
+``--only zoo``, ``--only families``, ``--only corpus`` and ``--only
+drivers`` run that phase alone (no kernel line, no final line); ``--ptxas`` prints the
 compiler's register and shared-memory report; ``--profile`` adds a
 torch.profiler pass over one warm bf16 decode, one warm int8 decode, one
 extra tokenizer and renderer train step and the zoo's two forms of a CFG
@@ -2373,6 +2389,317 @@ def corpus_phase(card, do_profile=False):
     return by_path
 
 
+# --------------------------------------------------------------- drivers ---
+
+DRIVERS_CORPUS = (40, 256)          # gen_corpus images, px
+DRIVERS_HOLDOUT = 8                 # train_vae's held-out images
+DRIVERS_VAE = (5, 8)                # train_vae steps, batch (bf16)
+DRIVERS_BATCH = 4                   # tokenizer / renderer batch, and --eval-batch
+DRIVERS_EVAL_STEPS = 8              # the tokenizer's eval decode
+ROUND_TRIP_DEPTH = 2                # MMDiT_XL depth of the file round trip (width kept)
+RESUME_RTOL = 1e-4                  # straight against resumed final loss (index_add_ order)
+
+
+def cut_depth_config(src, dst, depth):
+    """Write ``src`` with its decoder cut to ``depth`` blocks at the same
+    width (decoder_config ``hidden_size``)."""
+    import yaml
+
+    with open(src) as f:
+        cfg = yaml.safe_load(f)
+    dc = cfg["tokenizer"]["params"].setdefault("decoder_config", {})
+    dc.update(depth=depth, hidden_size=1536)
+    with open(dst, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return dst
+
+
+def run_driver(card, label, fn, expect, steps=None):
+    """Run one driver with every launch count set to 0 just before it; hold
+    the counts (vq_argmax, attention) to ``expect``; print its wall, peak
+    memory and, for a trainer, its warm steps/s and the device's busy share
+    of its loop. Returns (result, counts)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, t = timed(fn)
+    c = counts()
+    if c[:2] != expect or c[2:] != (0, 0):
+        raise RuntimeError(f"{label}: launch counts {c}, expected {expect + (0, 0)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timing = res.get("timing") if isinstance(res, dict) else None
+    extra = ""
+    if timing:
+        sps, busy = timing["warm_steps_per_s"], timing["device_busy_share"]
+        extra = (f", {sps:.3f} warm steps/s, device busy {busy:.3f} of the step loop "
+                 f"({steps} steps)") if sps is not None else ""
+    log(f"  driver {label}: {t:.1f} s wall, peak {peak:.2f} GiB{extra}; launches "
+        f"vq_argmax {c[0]}, attention {c[1]} on {card}")
+    return res, c
+
+
+def summarize_metrics(path):
+    """The root tool tools/summarize_convergence.py's main over a metrics
+    file (numpy only; loaded from its file)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "summarize_convergence", os.path.join(here, "tools", "summarize_convergence.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(path)
+    return buf.getvalue()
+
+
+def drivers_phase(card, do_profile=False):
+    """The eighth slice: the training drivers, in process through their
+    ``main``, at the flagship widths: gen_corpus -> train_vae (the SD3 VAE
+    at its widths, bf16) -> encode_corpus -> train_tokenizer at full depth
+    (fp32, TF32 off, EMA, eval decodes and image-space eval) -> the file
+    round trip at MMDiT_XL depth 2 (straight against resumed, export,
+    SelftokPipeline from the export, certify_tiers, train_renderer,
+    demo_e2e) -> train_renderer at full depth."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from selftoktokenizer_tpu_torch.core.config import (
+        FLAGSHIP_CONFIG, FLAGSHIP_RENDERER_CONFIG, load_config)
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+    from selftoktokenizer_tpu_torch.pipeline.pipeline import encode_latents
+    from selftoktokenizer_tpu_torch.pipeline.preprocess import load_image
+    from selftoktokenizer_tpu_torch.tools import (
+        certify_tiers, convert_ckpt, demo_e2e, encode_corpus, gen_corpus, train_renderer,
+        train_tokenizer, train_vae)
+    from selftoktokenizer_tpu_torch.train.vae import load_vae_params
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    by_path = {}
+    t_phase = time.time()
+
+    def j(*p):
+        return os.path.join(tmp, *p)
+
+    def size_gb(path):
+        return os.path.getsize(path) / 1e9
+
+    try:
+        du = shutil.disk_usage(tmp)
+        log(f"  temporary directory: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
+        tcfg = tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params))
+        check_train_widths(tcfg, renderer=False)
+        rcfg = tokenizer_config_from_params(
+            dict(load_config(FLAGSHIP_RENDERER_CONFIG).tokenizer.params))
+        check_train_widths(rcfg, renderer=True)
+        D, Denc, B, E = tcfg.decoder.depth, tcfg.encoder.depth, DRIVERS_BATCH, DRIVERS_EVAL_STEPS
+        n_img, px = DRIVERS_CORPUS
+        vae_steps, vae_b = DRIVERS_VAE
+
+        # 1. the corpus
+        (paths, _), c = run_driver(card, "gen_corpus", lambda: gen_corpus.main(
+            ["--out", j("imgs"), "--n", str(n_img), "--size", str(px)]), (0, 0))
+        by_path["drivers gen_corpus"] = c
+        # 2. the VAE at its published widths, then the corpus's latents
+        vres, c = run_driver(card, "train_vae", lambda: train_vae.main(
+            ["--data-dir", j("imgs"), "--size", str(px), "--steps", str(vae_steps),
+             "--batch-size", str(vae_b), "--ch", "128", "--ch-mult", "1,2,4,4",
+             "--res-blocks", "2", "--holdout", str(DRIVERS_HOLDOUT), "--eval-batch", "8",
+             "--warmup", "0", "--log-interval", "1", "--eval-interval", "1000",
+             "--ckpt-interval", "0", "--ckpt-dir", j("vae"),
+             "--metrics-out", j("vae.jsonl"), "--sample-out", j("vae_sample.png")]),
+            (0, 0), vae_steps)
+        by_path["drivers train_vae"] = c
+        vlog = [json.loads(s) for s in open(j("vae.jsonl"))]
+        losses = [r["loss"] for r in vlog if "loss" in r]
+        if not (all(math.isfinite(v) for v in losses) and math.isfinite(vres["eval_psnr_db"])):
+            raise RuntimeError(f"train_vae: losses {losses}, eval {vres}")
+        log(f"  train_vae: {vres['n_params'] / 1e6:.1f} M parameters, loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, held-out PSNR {vres['eval_psnr_db']:.3f} dB, "
+            f"SSIM {vres['eval_ssim']:.4f}; checkpoint {size_gb(j('vae', f'step_{vae_steps}')):.3f} GB")
+        del vres
+        meta, c = run_driver(card, "encode_corpus", lambda: encode_corpus.main(
+            ["--vae-ckpt", j("vae", f"step_{vae_steps}"), "--images-dir", j("imgs"),
+             "--out", j("lat.npy"), "--size", str(px), "--batch", "8"]), (0, 0))
+        by_path["drivers encode_corpus"] = c
+        lat = np.load(j("lat.npy"))
+        if lat.shape != (n_img, px // 8, px // 8, 16) or not np.isfinite(lat).all():
+            raise RuntimeError(f"encode_corpus: latents {lat.shape}")
+
+        # 3. the tokenizer at full depth: 4 steps, evals at 0, 2 and 4 (live
+        # and EMA), each an encode and an E-step decode
+        lat_args = ["--latents-file", j("lat.npy"), "--data_size", str(px),
+                    "--batch-size", str(B), "--log-interval", "1"]
+        n_evals, tracks, steps = 3, 2, 4
+        expect = (n_evals * tracks, steps * D + n_evals * tracks * E * D)
+        res, c = run_driver(card, "train_tokenizer (full depth)", lambda: train_tokenizer.main(
+            ["--yml-path", FLAGSHIP_CONFIG, "--steps", str(steps), "--ema-decay", "0.999",
+             "--eval-interval", "2", "--eval-steps", str(E), "--eval-batch", str(B),
+             "--eval-image-space", "--ckpt-interval", "0", "--ckpt-dir", j("tok_full"),
+             "--metrics-out", j("tok.jsonl")] + lat_args), expect, steps)
+        by_path["drivers train_tokenizer"] = c
+        res["state"].release()
+        del res
+        recs = [json.loads(s) for s in open(j("tok.jsonl"))]
+        ev = [r for r in recs if "eval_latent_mse" in r]
+        if len(ev) != n_evals or "vae_ceiling_psnr_db" not in ev[0] or \
+                not all(math.isfinite(r["eval_image_psnr_db_ema"]) for r in ev):
+            raise RuntimeError(f"train_tokenizer evals: {ev}")
+        log("  " + summarize_metrics(j("tok.jsonl")).strip().replace("\n", "\n  "))
+        log(f"  VAE ceiling {ev[0]['vae_ceiling_psnr_db']:.3f} dB / "
+            f"{ev[0]['vae_ceiling_ssim']:.4f}; image PSNR at step 4 "
+            f"{ev[-1]['eval_image_psnr_db']:.3f} dB (EMA {ev[-1]['eval_image_psnr_db_ema']:.3f})")
+
+        # 4. the file round trip at depth ROUND_TRIP_DEPTH, every width kept
+        d = ROUND_TRIP_DEPTH
+        yml = cut_depth_config(FLAGSHIP_CONFIG, j("tok-d2.yml"), d)
+        ryml = cut_depth_config(FLAGSHIP_RENDERER_CONFIG, j("ren-d2.yml"), d)
+        rt = lat_args + ["--yml-path", yml, "--ema-decay", "0.999"]
+        straight, c1 = run_driver(card, "train_tokenizer depth 2, 4 steps straight",
+                                  lambda: train_tokenizer.main(
+                                      rt + ["--steps", "4", "--ckpt-interval", "0",
+                                            "--ckpt-dir", j("tok_a")]), (0, 4 * d), 4)
+        straight["state"].release()
+        first, c2 = run_driver(card, "train_tokenizer depth 2, 2 steps + checkpoint",
+                               lambda: train_tokenizer.main(
+                                   rt + ["--steps", "2", "--ckpt-interval", "2",
+                                         "--ckpt-dir", j("tok_b")]), (0, 2 * d), 2)
+        first["state"].release()
+        resumed, c3 = run_driver(card, "train_tokenizer depth 2, resumed at 2 to 4",
+                                 lambda: train_tokenizer.main(
+                                     rt + ["--steps", "4", "--resume-from-steps", "2",
+                                           "--ckpt-interval", "4", "--ckpt-dir", j("tok_b")]),
+                                 (0, 2 * d), 2)
+        by_path["drivers round trip: tokenizer"] = tuple(sum(x) for x in zip(c1, c2, c3))
+        a, b_ = straight["final_loss"], resumed["final_loss"]
+        if not (math.isfinite(a) and abs(a - b_) <= RESUME_RTOL * abs(a)):
+            raise RuntimeError(f"resumed final loss {b_} differs from the straight run's {a}")
+        ck = j("tok_b", "step_4")
+        log(f"  round trip: final loss straight {a:.8f}, resumed {b_:.8f} (relative "
+            f"{abs(a - b_) / abs(a):.3g}); train state files step_2 "
+            f"{size_gb(j('tok_b', 'step_2')):.3f} GB, step_4 {size_gb(ck):.3f} GB")
+        state = resumed["state"]
+        tcfg2 = tokenizer_config_from_params(dict(load_config(yml).tokenizer.params))
+        if (tcfg2.decoder.depth, tcfg2.decoder.hidden_size) != (d, 1536):
+            raise RuntimeError(f"round-trip decoder {tcfg2.decoder}")
+
+        (_, t_exp) = timed(lambda: convert_ckpt.main(["export", "--yml-path", yml, "--src", ck,
+                                                      "--dst", j("tok.pth")]))
+        (_, t_ema) = timed(lambda: convert_ckpt.main(["export", "--yml-path", yml, "--src", ck,
+                                                      "--dst", j("tok_ema.pth"), "--ema"]))
+        log(f"  convert_ckpt export {t_exp:.1f} s ({size_gb(j('tok.pth')):.3f} GB), --ema "
+            f"{t_ema:.1f} s ({size_gb(j('tok_ema.pth')):.3f} GB)")
+
+        # the exported .pth in the pipeline: every leaf bit-equal to the state's
+        pipe = SelftokPipeline(load_config(yml), ckpt_path=j("tok.pth"), datasize=px,
+                               device="cuda")
+        for part, own, got in (("encoder", state.model.encoder, pipe.encoder),
+                               ("model", state.model.model, pipe.model)):
+            want_sd, got_sd = own.state_dict(), got.state_dict()
+            if set(want_sd) != set(got_sd):
+                raise RuntimeError(f"pipeline {part} keys differ from the state's: "
+                                   f"{sorted(set(want_sd) ^ set(got_sd))[:5]}")
+            bad = [k for k in want_sd if not torch.equal(want_sd[k], got_sd[k])]
+            if bad:
+                raise RuntimeError(f"pipeline {part} leaves differ from the state's: {bad[:5]}")
+        vae, vcfg = load_vae_params(j("vae", f"step_{vae_steps}"))
+        pipe.set_weights(vae=vae)
+        held = np.concatenate([load_image(q, px) for q in paths[-B:]])
+        reset_counts()
+        ids_pipe = pipe.encoding(held)
+        with torch.no_grad():
+            x0 = pipe._images_to_latents(pipe._to_device(held))
+            _, ids_state = encode_latents(state.model.encoder, tcfg2.encoder, x0, "highest")
+            _, margins = encode_latents(state.model.encoder, tcfg2.encoder, x0, "highest",
+                                        margins=True)
+        c4 = counts()
+        diff = ids_pipe != ids_state
+        if int((diff & (margins >= VQ_MARGIN)).sum()) != 0 or c4[:2] != (2, 0):
+            raise RuntimeError(f"pipeline encode ids differ from the state's outside the "
+                               f"margin, or launches {c4}")
+        log(f"  SelftokPipeline(ckpt_path=export): {len(pipe.encoder.state_dict())} encoder and "
+            f"{len(pipe.model.state_dict())} decoder leaves bit-equal to the state's; ids of "
+            f"{B} held-out images: {int(diff.sum())}/{diff.numel()} differ (smallest margin "
+            f"{margins.min().item():.3g}); launches {c4}")
+        by_path["drivers round trip: pipeline encode"] = c4
+        del pipe, vae, x0
+        state.release()
+        del state, resumed, straight, first
+
+        # certify_tiers: per tier, ids and margins of 3 batches of 12 and of
+        # the held-out batch (one vq_argmax each; the 'default' trunk's query
+        # attention 2 x Denc), and a 4-step decode of the held-out ids
+        n_stat, cb, dsteps = n_img - B, 12, 4
+        nb = -(-n_stat // cb) + 1
+        recs, c = run_driver(card, "certify_tiers", lambda: certify_tiers.main(
+            ["--ckpt", ck, "--yml-path", yml, "--latents-file", j("lat.npy"),
+             "--n", str(n_stat), "--batch", str(cb), "--eval-batch", str(B),
+             "--decode-steps", str(dsteps), "--out", j("tiers.jsonl")]),
+            (3 * nb, nb * 2 * Denc + 3 * dsteps * d))
+        by_path["drivers certify_tiers"] = c
+        by_tier = {r["tier"]: r for r in recs}
+        if by_tier["highest"]["flip_rate_vs_highest"] != 0.0 or \
+                not all(math.isfinite(r["decode_mse"]) for r in recs):
+            raise RuntimeError(f"certify_tiers records: {recs}")
+        log("  certify_tiers: " + "; ".join(
+            f"{r['tier']} flips {r['flip_rate_vs_highest']:.4g}, margin median "
+            f"{r['margin_median']:.3g}, decode MSE {r['decode_mse']:.5f}" for r in recs))
+
+        # the renderer from the exported .pth, 2 steps + checkpoint
+        rres, c = run_driver(card, "train_renderer depth 2, from the export",
+                             lambda: train_renderer.main(
+                                 ["--yml-path", ryml, "--tokenizer-ckpt", j("tok.pth"),
+                                  "--latents-file", j("lat.npy"), "--steps", "2",
+                                  "--batch-size", str(B), "--log-interval", "1",
+                                  "--ckpt-interval", "2", "--ckpt-dir", j("ren")]),
+                             (2, 2 * 2 * d), 2)
+        by_path["drivers round trip: train_renderer"] = c
+        rres["state"].release()
+        del rres
+        log(f"  renderer checkpoint {size_gb(j('ren', 'step_2')):.3f} GB")
+        demo, c = run_driver(card, "demo_e2e", lambda: demo_e2e.main(
+            ["--tokenizer-ckpt", ck, "--renderer-ckpt", j("ren", "step_2"), "--yml-path", yml,
+             "--renderer-yml", ryml, "--latents-file", j("lat.npy"), "--n", str(B),
+             "--decode-steps", str(E), "--out", j("demo.png"), "--json-out", j("demo.jsonl")]),
+            (1, E * d + 2 * d))
+        by_path["drivers round trip: demo_e2e"] = c
+        if png_size(j("demo.png")) != (B * px, 4 * px) or \
+                not all(math.isfinite(demo[f"{r}_psnr_db"]) for r in ("vae", "diffusion", "renderer")):
+            raise RuntimeError(f"demo_e2e: {demo}, grid {png_size(j('demo.png'))}")
+        log(f"  demo_e2e: PSNR / SSIM vae {demo['vae_psnr_db']} / {demo['vae_ssim']}, "
+            f"diffusion {demo['diffusion_psnr_db']} / {demo['diffusion_ssim']}, renderer "
+            f"{demo['renderer_psnr_db']} / {demo['renderer_ssim']}")
+
+        # 5. the renderer at full depth: 3 steps, no checkpoint
+        rres, c = run_driver(card, "train_renderer (full depth)", lambda: train_renderer.main(
+            ["--yml-path", FLAGSHIP_RENDERER_CONFIG, "--tokenizer-ckpt", j("tok.pth"),
+             "--latents-file", j("lat.npy"), "--steps", "3", "--batch-size", str(B),
+             "--log-interval", "1", "--ckpt-interval", "0", "--ckpt-dir", j("ren_full")]),
+            (3, 3 * 2 * rcfg.decoder.depth), 3)
+        by_path["drivers train_renderer"] = c
+        if not math.isfinite(rres["final_recon_mse"]):
+            raise RuntimeError(f"train_renderer: {rres}")
+        rres["state"].release()
+        del rres
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+        release()
+    log(f"  phase drivers: {time.time() - t_phase:.1f} s")
+    return by_path
+
+
 # ----------------------------------------------------------------- train ---
 
 TRAIN_BATCH = 4
@@ -2974,6 +3301,8 @@ def main_path_phase(card, do_profile=False):
     by_path.update(families_phase(card, do_profile))
     log("phase corpus:")
     by_path.update(corpus_phase(card, do_profile))
+    log("phase drivers:")
+    by_path.update(drivers_phase(card, do_profile))
     log("phase train:")
     by_path.update(train_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
@@ -2986,10 +3315,11 @@ def main_path_phase(card, do_profile=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["kernels", "train", "zoo", "families", "corpus"],
+    ap.add_argument("--only", choices=["kernels", "train", "zoo", "families", "corpus",
+                                        "drivers"],
                     default=None,
                     help="stop after the kernel phase, or run the train, the zoo, the "
-                         "families or the corpus phase alone")
+                         "families, the corpus or the drivers phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -3017,10 +3347,10 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only in ("train", "zoo", "families", "corpus"):
+    if args.only in ("train", "zoo", "families", "corpus", "drivers"):
         log(f"phase {args.only}:")
         phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase,
-                 "corpus": corpus_phase}[args.only]
+                 "corpus": corpus_phase, "drivers": drivers_phase}[args.only]
         paths = phase(card, args.profile)
         by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
         log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")

@@ -92,17 +92,23 @@ def build_encoder_config(name, K, input_size, encoder_hidden_size, in_channels,
 def build_decoder_config(name, K, input_size, encoder_hidden_size, in_channels,
                          decoder_config=None, diti_positions=True) -> MMDiTConfig:
     """Named decoder -> MMDiTConfig (MMDiT_XL: depth 24, patch 2,
-    pos_embed_max_size 192, num_patches 36864, context 16 -> 1536)."""
+    pos_embed_max_size 192, num_patches 36864, context 16 -> 1536).
+
+    The width is 64 * depth, as in the reference; a ``hidden_size`` entry
+    of decoder_config (the port's own key, which the reference does not
+    read) keeps a width at a cut depth, e.g. MMDiT_XL's 1536 at depth 2."""
     assert name in DIT_MODELS, name
     dc = dict(decoder_config or {})
     dc.pop("diti", None)
     time_adaln = dc.get("time_adaln", False)
+    hidden = dc.get("hidden_size")
     return MMDiTConfig(
         depth=dc.get("depth", 24), K=K, patch_size=2, in_channels=in_channels,
         pos_embed_max_size=dc.get("pos_embed_max_size", 192),
         num_patches=dc.get("num_patches", 36864),
         encoder_hidden_size=encoder_hidden_size,
-        context_dim=dc.get("context_dim", 64 * dc.get("depth", 24)),
+        context_dim=dc.get("context_dim", hidden or 64 * dc.get("depth", 24)),
+        hidden_override=hidden,
         adm_in_channels=encoder_hidden_size,
         class_dropout_prob=dc.get("class_dropout_prob", 0.1),
         time_adaln=time_adaln if time_adaln else "t_emb",

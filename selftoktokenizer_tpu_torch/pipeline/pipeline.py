@@ -195,12 +195,8 @@ class SelftokPipeline:
         encode path in use."""
         with routing.kernel_route(kernels):
             x0 = self._images_to_latents(self._to_device(images))
-            serving = self._serving(self.encode_precision)
-            with fp32_exact(_EXACT[self.encode_precision]):
-                return encoder_margins(
-                    self.encoder, self.tcfg.encoder, x0,
-                    trunk_dtype=torch.bfloat16 if serving else None,
-                    fast_attn=serving)
+            return encode_latents(self.encoder, self.tcfg.encoder, x0, self.encode_precision,
+                                  margins=True)
 
     @torch.no_grad()
     def decoding(self, ids, noise=None, generator=None, cfg_scale=None,
@@ -261,21 +257,8 @@ class SelftokPipeline:
 
     def _encode_impl(self, images, precision=None):
         prec = precision or self.encode_precision
-        _check_precision(prec)
-        x0 = self._images_to_latents(images)
-        # 'default' is the bf16 serving path of the dual encoder: bf16 trunk,
-        # kernel attention, fast VQ scores. 'highest' keeps fp32 activations
-        # and plain fp32 attention, with TF32 off; 'high' the same with TF32
-        # on. The other modes take no bf16 trunk at 'default'.
-        serving = self._serving(prec)
-        with fp32_exact(_EXACT[prec]):
-            return encoder_apply(
-                self.encoder, self.tcfg.encoder, x0,
-                trunk_dtype=torch.bfloat16 if serving else None,
-                fast_attn=serving)
-
-    def _serving(self, prec):
-        return prec == "default" and self.tcfg.encoder.qformer_mode == "dual"
+        return encode_latents(self.encoder, self.tcfg.encoder, self._images_to_latents(images),
+                              prec)
 
     def _tokens_to_context(self, ids):
         outs_q = vq_mod.get_output_from_indices(self.encoder.quantizer, ids)
@@ -376,6 +359,27 @@ class SelftokPipeline:
 
 # the TF32 setting of each encode tier: off, on, untouched (the bf16 trunk)
 _EXACT = {"highest": True, "high": False, "default": None}
+
+
+def _serving(prec, enc_cfg):
+    return prec == "default" and enc_cfg.qformer_mode == "dual"
+
+
+def encode_latents(encoder, enc_cfg, x0, precision="highest", margins=False):
+    """The encode of one precision tier from the tokenizer's latents:
+    (quantized context, ids), or with ``margins`` (ids, VQ top-2 margins).
+    'default' is the bf16 serving path of the dual encoder (bf16 trunk,
+    kernel attention); 'highest' keeps fp32 activations and plain fp32
+    attention with TF32 off; 'high' the same with TF32 on, inside the call.
+    The other encoder modes take no bf16 trunk at 'default'. Without
+    ``margins`` the ids come from ``vq_argmax`` on a CUDA device, exact at
+    every tier; with them, from the exact fp32 scores of the same trunk."""
+    _check_precision(precision)
+    serving = _serving(precision, enc_cfg)
+    fn = encoder_margins if margins else encoder_apply
+    with fp32_exact(_EXACT[precision]):
+        return fn(encoder, enc_cfg, x0, trunk_dtype=torch.bfloat16 if serving else None,
+                  fast_attn=serving)
 
 
 def _check_precision(prec):

@@ -2,5 +2,10 @@
 ``python -m selftoktokenizer_tpu_torch.tools.<name>``: ``smoke`` (image ->
 ids -> PNG), ``tokenize_corpus`` (a folder or tar shards -> an ids file),
 ``eval_recon`` (reconstruction quality) and ``encode_corpus`` (VAE latents
-of a folder). Each has ``main(argv)``; the loops are functions of their
-own, so a caller can drive them without a subprocess."""
+of a folder); and the training drivers: ``gen_corpus`` (a synthetic
+texture corpus), ``train_vae``, ``train_tokenizer`` (its data streams in
+``train_data``), ``train_renderer``, ``convert_ckpt`` (reference files in,
+the reference-named export out), ``certify_tiers`` (the encode tiers on a
+trained checkpoint) and ``demo_e2e`` (a trained stack to a PNG grid). Each
+has ``main(argv)``; the loops are functions of their own, so a caller can
+drive them without a subprocess."""

@@ -5,6 +5,12 @@ Loaders: ``'native'`` is the C++ loader (``data/native.py``), chosen where
 it can be built here (``native_available``: a C++ compiler with the libjpeg
 and libpng headers); ``'pil'`` is ``pipeline/preprocess.py``. Both give
 float32 NHWC in [-1, 1]; they agree within 3 uint8 levels.
+
+The training drivers also share: the device check (``resolve_device``:
+'cuda' without a CUDA device raises), seeded generators (``generator``:
+one per (seed, label) tuple, as JAX folds a label into a key), the seeded
+SD3 VAE (``seeded_vae``), the encode of images to the tokenizer's latents
+and the metrics file writer.
 """
 
 from __future__ import annotations
@@ -83,3 +89,96 @@ def rank_share(n):
     first n % world ranks."""
     r, w = rank_and_world()
     return n // w + (1 if r < n % w else 0)
+
+
+# ---------------------------------------------------------------------------
+# what the training drivers share
+# ---------------------------------------------------------------------------
+
+def resolve_device(name):
+    """The torch device a tool runs on: 'cuda' (the default) needs a CUDA
+    device and raises without one; 'cpu' only when the caller asks."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available; pass "
+                           "--device cpu to run on the CPU")
+    return dev
+
+
+def derive_seed(*keys):
+    """One 63-bit seed from a tuple of integers (a seed and the labels of a
+    use: a step, a stream), as JAX folds a label into a key: the same
+    tuple gives the same seed in every process."""
+    return int(np.random.SeedSequence([int(k) for k in keys]).generate_state(2, np.uint64)[0]
+               >> np.uint64(1))
+
+
+def generator(device, *keys):
+    """A fresh ``torch.Generator`` on ``device`` seeded by ``derive_seed``.
+    A driver makes one per step from (seed, step), never one across steps,
+    so a resumed run draws what the uninterrupted run drew."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(derive_seed(*keys))
+    return g
+
+
+# the label of the seeded SD3 VAE among a config's random_seed uses
+VAE_SEED_LABEL = 1
+
+
+def seeded_vae(random_seed, zero_init_std=0.0):
+    """The SD3 VAE at its published widths with the port's seeded init:
+    the reference's scheme (``models.tokenizer.init_weights_``) drawn on
+    the CPU from ``generator('cpu', random_seed, VAE_SEED_LABEL)``, so
+    every device gets the same weights. ``gen_corpus --latents-out`` and
+    ``train_tokenizer`` without ``--vae-path`` both encode with it. Returns
+    (SDVAE on the CPU in fp32, its VAEConfig)."""
+    from selftoktokenizer_tpu_torch.models.tokenizer import init_weights_
+    from selftoktokenizer_tpu_torch.models.vae import SDVAE, VAEConfig
+
+    cfg = VAEConfig()
+    vae = SDVAE(cfg)
+    init_weights_(vae, generator("cpu", random_seed, VAE_SEED_LABEL), zero_init_std)
+    return vae, cfg
+
+
+def bf16_vae(vae, device):
+    """A VAE module for encoding / decoding: bf16, on ``device``, frozen."""
+    import torch
+
+    return vae.to(device=device, dtype=torch.bfloat16).requires_grad_(False)
+
+
+def encode_to_latents(vae, cfg, images, device):
+    """[-1, 1] NHWC images (numpy or tensor) -> the tokenizer's latents
+    ``SD3LatentFormat.process_in(vae_encode_mode(...))`` in fp32 on
+    ``device``; the VAE (bf16, see ``bf16_vae``) encodes in bf16 and the
+    format's affine map runs on the bf16 result, as the pipeline's encode
+    does."""
+    import torch
+
+    from selftoktokenizer_tpu_torch.models.vae import SD3LatentFormat, vae_encode_mode
+
+    with torch.no_grad():
+        x = native.to_device(images, device).to(torch.bfloat16)
+        return SD3LatentFormat.process_in(vae_encode_mode(vae, cfg, x)).float()
+
+
+def metrics_writer(path):
+    """A function appending one JSON line per record to ``path`` (the file
+    opened and closed around each record); a no-op when path is None."""
+    import json
+
+    def emit(rec):
+        if path is not None:
+            with open(path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    return emit
+
+
+def log(msg):
+    print(msg, flush=True)

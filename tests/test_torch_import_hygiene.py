@@ -1,4 +1,5 @@
-"""The PyTorch port imports torch, never jax, and nothing of the JAX package."""
+"""The PyTorch port imports torch, never jax, nothing of the JAX package and
+nothing of the reference's root ``tools/``."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "selftoktokenizer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "selftoktokenizer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "selftoktokenizer_tpu", "tools")
 
 
 def _py_files():
@@ -57,7 +58,11 @@ def test_port_has_every_module_of_the_slice():
             "utils/io.py", "utils/logging.py", "core/cli.py", "pipeline/preprocess.py",
             "csrc/dataloader.cc", "data/native.py", "eval/inception.py", "eval/lpips.py",
             "tools/smoke.py", "tools/tokenize_corpus.py", "tools/eval_recon.py",
-            "tools/encode_corpus.py"]
+            "tools/encode_corpus.py",
+            # the training drivers
+            "core/export.py", "tools/gen_corpus.py", "tools/convert_ckpt.py",
+            "tools/train_data.py", "tools/train_tokenizer.py", "tools/train_vae.py",
+            "tools/train_renderer.py", "tools/certify_tiers.py", "tools/demo_e2e.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing, missing
 
