@@ -86,6 +86,7 @@ import argparse
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -740,6 +741,10 @@ def kernel_phase():
         # renderer's x rows (its context rows are qkv views, below)
         ("train_joint_fp32_masked", 4, 24, 768, 768, 64, f32, "prefix", True),
         ("train_renderer_x_fp32", 4, 24, 256, 768, 64, f32, "ones", True),
+        # sharded training: the tokenizer's joint attention on one rank's
+        # heads, the decoder split over tensor = 2 and 4
+        ("train_joint_tp2_fp32_masked", 4, 12, 768, 768, 64, f32, "prefix", True),
+        ("train_joint_tp4_fp32_masked", 4, 6, 768, 768, 64, f32, "prefix", True),
         # the decode's other context buckets: joint lengths 384, 512 and 640
         ("decode_joint_384_bf16_masked", 2, 24, 384, 384, 64, bf, "prefix", True),
         ("decode_joint_512_bf16_masked", 2, 24, 512, 512, 64, bf, "prefix", True),
@@ -3288,6 +3293,260 @@ def train_phase(card, do_profile):
             "VAE train": vae_counts}
 
 
+# --------------------------------------------------------------- sharded ---
+
+SHARDED_SEED = 17
+SHARDED_STEPS = 3
+
+
+def _sharded_reference(tcfg, tc, gen, dev):
+    """A fresh flagship tokenizer on ``dev`` from SHARDED_SEED, and its first
+    (k-means init) train step's gradient half through ``tokenizer_grads``,
+    unsharded: returns (the weights' CPU copy, the batch and draws, the
+    reference: loss, gradients by name on the CPU, VQ state, ids, the ids'
+    top-2 margins against the k-means codebook, and the pre-VQ outputs)."""
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import (
+        ImageTokenizer, init_weights_, pre_vq_outs)
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    with torch.device(dev):
+        tok = ImageTokenizer(tcfg)
+    init_weights_(tok, gen, zero_init_std=0.02)
+    sd0 = {k: v.detach().to("cpu", copy=True) for k, v in tok.state_dict().items()}
+    batch, draws = _tokenizer_draws(tcfg, TRAIN_BATCH, gen)
+    ref = tr.make_train_state(tok, tcfg, tc)
+    loss, aux, params = tr.tokenizer_grads(ref, tcfg, batch, **dict(draws))
+    ids, vq = aux["ids"], aux["vq_state"]
+    grads = {n: p.grad.detach().to("cpu", copy=True) for n, p in tr._trainable(tok)}
+    with torch.no_grad():
+        q = tok.encoder.quantizer
+        outs = pre_vq_outs(tok.encoder, tcfg, batch)[0]
+        z = vq_mod.l2norm(vq_mod.project_in(q, outs))
+        z = z.reshape(TRAIN_BATCH * tcfg.k, -1)
+        embed = vq_mod.kmeans_cosine(z, tcfg.encoder.codebook_size, draws["kmeans_idx"],
+                                     tcfg.quantizer.get("kmeans_iters", 10))
+        top2 = torch.topk(z @ embed.t(), 2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).reshape(TRAIN_BATCH, tcfg.k).cpu()
+    want = {"loss": float(loss.detach()), "grads": grads, "vq": vq.to("cpu"),
+            "ids": ids.cpu(), "margins": margins, "outs": outs.cpu()}
+    ref.release()
+    del tok, ref, aux, params, loss, ids, vq, outs, z, embed, top2
+    release()
+    return sd0, batch, draws, want
+
+
+def _sharded_steps(name, tcfg, tc, sd0, batch, draws, want, mesh, gen, dev, leader,
+                   do_profile=False):
+    """The sharded state over ``mesh`` (FSDP2 and the tensor-parallel
+    wrappers, whatever the axis sizes) from the weights sd0: step 1 from
+    the reference's draws held against it (on the leader, after the whole
+    gradients are gathered), then SHARDED_STEPS - 1 steps from ``gen``,
+    every count set to 0 just before each step and read just after; with
+    do_profile, one more step under the profiler. Returns (launch counts
+    summed over the steps, warm step seconds, peak GiB of this rank)."""
+    from types import SimpleNamespace
+
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import ImageTokenizer, pre_vq_outs
+    from selftoktokenizer_tpu_torch.parallel import distributed as pdist
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    with torch.device(dev):
+        tok = ImageTokenizer(tcfg)
+    tok.load_state_dict(sd0)
+    state = tr.make_train_state(tok, tcfg, tc, mesh=mesh, tp=True)
+    sh = state.sharding
+    vq_ref = {**want, "name": "train_step"} if leader else None
+    if pdist.rank_and_world(sh.dp_group)[1] > 1:
+        # the ranks' encoders see fewer rows than the reference's, and the
+        # dead-code reactivation (an inverse CDF over the tokens) turns an
+        # ulp of the pre-VQ outputs into another token for a code: phase A
+        # is held on the sharded encoder's own outputs (gathered as the step
+        # gathers them), those against the reference's
+        with torch.no_grad():
+            outs = pdist.all_gather_rows(state.model.run(
+                lambda m: pre_vq_outs(m.encoder, tcfg, sh.local_rows(batch))[0]), sh.dp_group)
+            _, ids, _, vq, _ = state.model.run(lambda m: vq_mod.vq_train_apply(
+                m.encoder.quantizer, state.vq_state, outs, tcfg.quantizer,
+                kmeans_idx=draws["kmeans_idx"], react_uniforms=draws["react_uniforms"]))
+        if leader:
+            rel = ((outs.cpu() - want["outs"]).abs().max().item()
+                   / want["outs"].abs().max().item())
+            if rel > TRAIN_VQ_TOL:
+                raise RuntimeError(f"{name}: the pre-VQ outputs differ from train_step's by "
+                                   f"{rel} of their scale")
+            log(f"  {name}: pre-VQ outputs within {rel:.3g} of train_step's")
+            vq_ref = {**want, "vq": vq.to("cpu"), "ids": ids.cpu(),
+                      "name": "phase A on these outputs"}
+        del outs, ids, vq
+    per_step = (0, tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1), 0, 0)
+    total = (0, 0, 0, 0)
+    secs, peaks = [], []
+    for step in range(SHARDED_STEPS):
+        kw = dict(draws) if step == 0 else {"rng": gen}
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (state, logs), t = timed(lambda: tr.dp_train_step(state, tcfg, tc, sh.local_rows(batch),
+                                                          **kw))
+        c = counts()
+        if c != per_step:
+            raise RuntimeError(f"{name} step {step + 1}: launch counts {c}, expected {per_step}")
+        total = tuple(a + b for a, b in zip(total, c))
+        secs.append(t)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        loss, gnorm = float(logs["loss"]), float(logs["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise RuntimeError(f"{name} step {step + 1}: loss {loss}, grad norm {gnorm}")
+        if leader:
+            log(f"  {name} step {step + 1}: loss {loss:.6f}, grad norm {gnorm:.6g}, {t:.3f} s, "
+                f"peak {peaks[-1]:.2f} GiB a rank, attention launches {c[1]}")
+        if step == 0:
+            # the whole gradients (a collective), held on the leader
+            full = [(n, SimpleNamespace(grad=sh.full(n, p.grad.detach())))
+                    for n, p in tr._trainable(tok)]
+            if leader:
+                hold_loss(f"{name} step 1", loss, want["loss"], "train_step")
+                hold_grads(f"{name} step 1", full, [want["grads"][n] for n, _ in full],
+                           "train_step")
+                worst = 0.0
+                for f in ("embed", "cluster_size", "embed_avg", "timestep_p_over_c", "count"):
+                    a = getattr(state.vq_state, f).float().cpu()
+                    b = getattr(vq_ref["vq"], f).float()
+                    rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    if rel > TRAIN_VQ_TOL:
+                        raise RuntimeError(f"{name}: VQ buffer {f} differs from "
+                                           f"{vq_ref['name']} by {rel} of its scale")
+                    worst = max(worst, rel)
+                diff = logs["ids"].cpu() != vq_ref["ids"]
+                if int((diff & (want["margins"] >= VQ_MARGIN)).sum()) != 0:
+                    raise RuntimeError(f"{name}: ids differ from {vq_ref['name']} outside "
+                                       "the margin")
+                log(f"  {name} step 1 vs train_step: loss {loss:.8f} / {want['loss']:.8f}, VQ "
+                    f"buffers within {worst:.3g} of {vq_ref['name']}, ids differing "
+                    f"{int(diff.sum())}/{diff.numel()}")
+            del full
+    codebook = sh.full(tr.CODEBOOK, tok.encoder.quantizer._codebook.embed.detach())
+    if not torch.equal(codebook[0], state.vq_state.embed):
+        raise RuntimeError(f"{name}: the EMA codebook was not written into the shards")
+    warm_s = statistics.median(secs[1:])
+    if do_profile:
+        profile_train_step(lambda: tr.dp_train_step(state, tcfg, tc, sh.local_rows(batch),
+                                                    rng=gen), warm_s, name)
+    state.release()
+    del tok, state, sh
+    release()
+    return total, warm_s, max(peaks)
+
+
+def _sharded_rank(rank, world, shape, store, out_dir):
+    """One NCCL rank a card of the multi-card meshes (``spawn``ed)."""
+    import datetime
+    import os
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+    from selftoktokenizer_tpu_torch.parallel import distributed as pdist
+    from selftoktokenizer_tpu_torch.parallel.mesh import make_mesh
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dev = f"cuda:{rank}"
+    # a collective that waits 5 minutes ends the rank (a step takes seconds)
+    pdist.init(backend="nccl", init_method=f"file://{store}", rank=rank, world_size=world,
+               timeout=datetime.timedelta(minutes=5))
+    tcfg = tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params))
+    tc = tr.TrainConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SHARDED_SEED)
+    # every rank draws the same weights and batch; rank 0 alone keeps the
+    # unsharded reference
+    sd0, batch, draws, want = _sharded_reference(tcfg, tc, gen, dev)
+    if rank != 0:
+        want = None
+    mesh = make_mesh(*shape)
+    total, warm_s, peak = _sharded_steps(f"tokenizer sharded {shape}", tcfg, tc, sd0, batch,
+                                         draws, want, mesh, gen, dev, rank == 0)
+    peaks = pdist.allgather_f64([peak])[:, 0].tolist()
+    if rank == 0:
+        with open(os.path.join(out_dir, "result.json"), "w") as f:
+            json.dump({"counts": total, "warm_s": warm_s, "peaks": peaks}, f)
+    # only on success: a rank that raised exits with its error, and the
+    # parent's join ends the others (destroying the group would wait on them)
+    torch.distributed.destroy_process_group()
+
+
+def sharded_phase(card, do_profile=False):
+    """Sharded training at the flagship widths, fp32 with TF32 off: path
+    "tokenizer sharded", a one-rank NCCL group (FileStore) with the mesh
+    (1, 1, 1), the tokenizer through the FSDP2 and tensor-parallel wrappers
+    for SHARDED_STEPS steps, the first held against the unsharded
+    ``train_step`` on the same card, weights and draws; with 2 or more
+    cards, one NCCL rank a card for (1, 2, 1), (1, 1, 2) and, with 4,
+    (1, 2, 2), each held the same way on rank 0 (phase A, where the rows
+    are split, on the sharded encoder's own outputs, held against the
+    unsharded encoder's)."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+    from selftoktokenizer_tpu_torch.parallel import distributed as pdist
+    from selftoktokenizer_tpu_torch.parallel.mesh import make_mesh
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    paths = {}
+    try:
+        dev = "cuda"
+        tcfg = tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params))
+        check_train_widths(tcfg, renderer=False)
+        tc = tr.TrainConfig()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SHARDED_SEED)
+        sd0, batch, draws, want = _sharded_reference(tcfg, tc, gen, dev)
+        with tempfile.TemporaryDirectory() as d:
+            if not pdist.init(backend="nccl", init_method=f"file://{os.path.join(d, 'store')}",
+                              rank=0, world_size=1):
+                raise RuntimeError("tokenizer sharded: no process group formed")
+            try:
+                mesh = make_mesh(1, 1, 1)
+                total, warm_s, peak = _sharded_steps(
+                    "tokenizer sharded (1, 1, 1)", tcfg, tc, sd0, batch, draws, want, mesh, gen,
+                    dev, True, do_profile)
+            finally:
+                torch.distributed.destroy_process_group()
+        del sd0, batch, draws, want
+        release()
+        paths["tokenizer sharded"] = total
+        log(f"train tokenizer sharded, mesh (1, 1, 1) (FSDP2 + tensor-parallel wrappers), batch "
+            f"{TRAIN_BATCH}, fp32 (TF32 off): {warm_s:.3f} s a warm step (median of steps "
+            f"2-{SHARDED_STEPS}), peak memory {peak:.2f} GiB a rank, attention launches "
+            f"{total[1] // SHARDED_STEPS} a rank-step on {card}")
+        n = torch.cuda.device_count()
+        meshes = ([(1, 2, 1), (1, 1, 2)] if n >= 2 else []) + ([(1, 2, 2)] if n >= 4 else [])
+        for shape in meshes:
+            world = math.prod(shape)
+            with tempfile.TemporaryDirectory() as d:
+                mp.start_processes(_sharded_rank, args=(world, shape, os.path.join(d, "store"), d),
+                                   nprocs=world, start_method="spawn")
+                with open(os.path.join(d, "result.json")) as f:
+                    res = json.load(f)
+            paths[f"tokenizer sharded {shape}"] = tuple(res["counts"])
+            log(f"train tokenizer sharded, mesh {shape}, {world} ranks, batch {TRAIN_BATCH}, "
+                f"fp32 (TF32 off): {res['warm_s']:.3f} s a warm step on rank 0, peak memory "
+                f"{', '.join(f'{p:.2f}' for p in res['peaks'])} GiB by rank, attention launches "
+                f"{res['counts'][1] // SHARDED_STEPS} a rank-step on {card}")
+        log(f"  sharded meshes run: {[(1, 1, 1)] + meshes} on {n} card(s)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return paths
+
+
 def main_path_phase(card, do_profile=False):
     by_path = {}
     by_path["encode + bf16 decode"], ref = bf16_path(card, do_profile)
@@ -3305,6 +3564,8 @@ def main_path_phase(card, do_profile=False):
     by_path.update(drivers_phase(card, do_profile))
     log("phase train:")
     by_path.update(train_phase(card, do_profile))
+    log("phase sharded:")
+    by_path.update(sharded_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
     by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in by_path.items()}
     log(f"  launches on the main paths: {json.dumps(by_path)}")
@@ -3316,10 +3577,10 @@ def main_path_phase(card, do_profile=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--only", choices=["kernels", "train", "zoo", "families", "corpus",
-                                        "drivers"],
+                                        "drivers", "sharded"],
                     default=None,
                     help="stop after the kernel phase, or run the train, the zoo, the "
-                         "families, the corpus or the drivers phase alone")
+                         "families, the corpus, the drivers or the sharded phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -3347,10 +3608,11 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only in ("train", "zoo", "families", "corpus", "drivers"):
+    if args.only in ("train", "zoo", "families", "corpus", "drivers", "sharded"):
         log(f"phase {args.only}:")
         phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase,
-                 "corpus": corpus_phase, "drivers": drivers_phase}[args.only]
+                 "corpus": corpus_phase, "drivers": drivers_phase,
+                 "sharded": sharded_phase}[args.only]
         paths = phase(card, args.profile)
         by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
         log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")

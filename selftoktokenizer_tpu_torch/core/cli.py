@@ -2,8 +2,10 @@
 reference ``core/cli.py``): ``build_parser``, and ``parse_args``, where a
 value the yml sets wins over the flag's.
 
-The mesh flags keep the reference's names; ``parallel/mesh.py::make_mesh``
-raises for ``--mesh-fsdp`` or ``--mesh-tensor`` above 1. ``--device``
+The mesh flags keep the reference's names and give
+``parallel/mesh.py::make_mesh`` its axis sizes (``--mesh-data`` -1: the
+ranks the other two leave); a shape whose product is not the world size
+raises ``ValueError``. ``--device``
 (default ``cuda``) is where the run goes; ``--device cpu`` asks for the
 CPU, as the tests do.
 """

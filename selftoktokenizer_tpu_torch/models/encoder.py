@@ -46,9 +46,10 @@ from torch import nn
 from selftoktokenizer_tpu_torch.models import vq as vq_mod
 from selftoktokenizer_tpu_torch.ops.attention import sdpa, serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
-    gate, gelu_tanh, linear, linear_apply, modulate, patch_embed, timestep_embedder)
+    gate, gelu_tanh, linear, linear_apply, modulate, patch_embed)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
-from selftoktokenizer_tpu_torch.ops.posembed import crop_pos_embed, sincos_1d, sincos_2d
+from selftoktokenizer_tpu_torch.ops.posembed import (
+    crop_pos_embed, sincos_1d, sincos_2d, timestep_embedding)
 
 @dataclasses.dataclass
 class EncoderConfig:
@@ -132,8 +133,10 @@ class TimestepEmbedder(nn.Module):
 
 
 def timestep_embedder_apply(m: TimestepEmbedder, t):
-    return timestep_embedder(t, m.mlp[0].weight, m.mlp[0].bias,
-                             m.mlp[2].weight, m.mlp[2].bias, m.dim_freq)
+    """sinusoid -> Linear -> SiLU -> Linear, each linear through
+    ``linear_apply``."""
+    h = linear_apply(m.mlp[0], timestep_embedding(t, m.dim_freq))
+    return linear_apply(m.mlp[2], F.silu(h))
 
 
 class RMSNormWeight(nn.Module):

@@ -162,7 +162,11 @@ class DismantledBlock(nn.Module):
 
 class JointBlock(nn.Module):
     """multires: also the low-res context stream's block (pre-only in the
-    last block, like the context block) and the reconstruction stream's."""
+    last block, like the context block) and the reconstruction stream's.
+
+    Calling the block runs ``joint_block_apply`` on it (``forward``), which
+    is how ``_trunk`` steps through the decoder: a block sharded by FSDP
+    (``parallel.mesh.apply_fsdp``) gathers its weights around that call."""
 
     def __init__(self, cfg: MMDiTConfig, last=False, multires=False):
         super().__init__()
@@ -172,6 +176,23 @@ class JointBlock(nn.Module):
         if multires:
             self.context_block_low_res = DismantledBlock(cfg, pre_only=last, pos_embedder=pos)
             self.rec_block = DismantledBlock(cfg)
+
+    def forward(self, cfg: MMDiTConfig, context, x, c, pos_mods=None, key_mask=None, last=False,
+                ctx_key_mask=None, own_mods=False, remat=False):
+        """``joint_block_apply`` of this block. own_mods: pos_mods is the
+        context block's own row of the adaLN table (``block_context_mods``),
+        computed here from its weights. remat: recompute the block's
+        activations in the backward (``torch.utils.checkpoint``)."""
+        def fn(context, x):
+            mods = pos_mods
+            if own_mods:
+                mods = block_context_mods(self.context_block, cfg)[:context.shape[1]]
+                mods = mods.to(context.dtype)
+            return joint_block_apply(self, cfg, context, x, c, pos_mods=mods,
+                                     key_mask=key_mask, last=last, ctx_key_mask=ctx_key_mask)
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, context, x, use_reentrant=False)
+        return fn(context, x)
 
 
 class FinalLayer(nn.Module):
@@ -261,15 +282,17 @@ def load_uncond_buffers(cfg: MMDiTConfig):
 # ---------------------------------------------------------------------------
 
 def _adaln(p, c):
-    lin = p.adaLN_modulation[1]
-    return linear(F.silu(c), lin.weight, lin.bias)
+    return linear_apply(p.adaLN_modulation[1], F.silu(c))
 
 
 def _qkv_split(p: DismantledBlock, cfg: MMDiTConfig, x):
-    """qkv linear + optional per-head q/k norm, flat [B,L,C] -> 3x[B,H,L,D]."""
+    """qkv linear + optional per-head q/k norm, flat [B,L,C] -> 3x[B,H,L,D].
+    H is the heads the qkv weight holds: all of them, or this rank's under
+    tensor parallelism (``parallel.tp`` orders its rows head-wise)."""
     B, L, C = x.shape
-    H = cfg.num_heads
-    qkv = linear_apply(p.attn.qkv, x).reshape(B, L, 3, H, C // H)
+    hd = C // cfg.num_heads
+    qkv = linear_apply(p.attn.qkv, x)
+    qkv = qkv.reshape(B, L, 3, qkv.shape[-1] // (3 * hd), hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if cfg.qk_norm == "rms":
         q = rms_norm(q, p.attn.ln_q.weight)
@@ -363,16 +386,19 @@ def precompute_context_mods(params: MMDiT, cfg: MMDiTConfig, length=None,
     multi-resolution low-res context."""
     if cfg.time_adaln not in ("pos_emb", "pos_t_emb"):
         return None
+    return torch.stack([block_context_mods(getattr(bp, block_key), cfg, length)
+                        for bp in list(params.joint_blocks)[:-1]])
+
+
+def block_context_mods(blk: DismantledBlock, cfg: MMDiTConfig, length=None):
+    """One context block's row of ``precompute_context_mods``: [L, 6*hidden]
+    ('pos_emb') or [L, hidden] ('pos_t_emb')."""
     L = length if length is not None else cfg.register_length + cfg.K
     base = 1000 + 8 * np.arange(L) if cfg.diti_positions else np.arange(L)
     positions = torch.as_tensor(base, dtype=torch.float32,
-                                device=params.context_pos_embed.device)
-    mods = []
-    for bp in list(params.joint_blocks)[:-1]:
-        blk = getattr(bp, block_key)
-        t_emb = timestep_embedder_apply(blk.t_embedder, positions)
-        mods.append(t_emb if cfg.time_adaln == "pos_t_emb" else _adaln(blk, t_emb))
-    return torch.stack(mods)
+                                device=blk.adaLN_modulation[1].bias.device)
+    t_emb = timestep_embedder_apply(blk.t_embedder, positions)
+    return t_emb if cfg.time_adaln == "pos_t_emb" else _adaln(blk, t_emb)
 
 
 def final_layer_apply(p: FinalLayer, x, c):
@@ -386,23 +412,20 @@ def final_layer_apply(p: FinalLayer, x, c):
 
 def _trunk(params: MMDiT, cfg: MMDiTConfig, context, x, c, ctx_mods, key_mask=None,
            ctx_key_mask=None):
-    """depth-1 joint blocks + the final pre-only block + final layer."""
+    """depth-1 joint blocks + the final pre-only block + final layer, each
+    block called as a module. ctx_mods None in a 'pos_emb' / 'pos_t_emb'
+    mode: each block computes its row of the table itself (the values of
+    ``precompute_context_mods``)."""
+    own = ctx_mods is None and cfg.time_adaln in ("pos_emb", "pos_t_emb")
     if ctx_mods is not None:
         ctx_mods = ctx_mods.to(context.dtype)
     remat = cfg.use_checkpoint and torch.is_grad_enabled()
-
-    def block(bp, context, x, pos_mods, last):
-        def fn(context, x):
-            return joint_block_apply(bp, cfg, context, x, c, pos_mods=pos_mods,
-                                     key_mask=key_mask, last=last, ctx_key_mask=ctx_key_mask)
-        if remat:
-            return torch.utils.checkpoint.checkpoint(fn, context, x, use_reentrant=False)
-        return fn(context, x)
-
     blocks = list(params.joint_blocks)
     for i, bp in enumerate(blocks[:-1]):
-        context, x = block(bp, context, x, None if ctx_mods is None else ctx_mods[i], False)
-    _, x = block(blocks[-1], context, x, None, True)
+        context, x = bp(cfg, context, x, c, pos_mods=None if ctx_mods is None else ctx_mods[i],
+                        key_mask=key_mask, ctx_key_mask=ctx_key_mask, own_mods=own, remat=remat)
+    _, x = blocks[-1](cfg, context, x, c, key_mask=key_mask, last=True,
+                      ctx_key_mask=ctx_key_mask, remat=remat)
     return final_layer_apply(params.final_layer, x, c)
 
 
@@ -465,8 +488,6 @@ def mmdit_apply(params: MMDiT, cfg: MMDiTConfig, x, t, encoder_hidden_states,
     key_mask = build_decode_key_mask(mask, xt.shape[1], cfg.register_length)
     ctx_key_mask = None if context_see_xt else build_decode_key_mask(
         mask, 0, cfg.register_length)
-    if ctx_mods is None:
-        ctx_mods = precompute_context_mods(params, cfg)
     out = _trunk(params, cfg, context, xt, c, ctx_mods, key_mask=key_mask,
                  ctx_key_mask=ctx_key_mask)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)

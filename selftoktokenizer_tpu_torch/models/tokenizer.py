@@ -110,6 +110,12 @@ class ImageTokenizer(nn.Module):
         self.encoder = QformerEncoder(cfg.encoder)
         self.model = None if encode_only else MMDiT(cfg.decoder)
 
+    def run(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs). The trainer reaches the module's
+        weights inside this call: under FSDP (``parallel.mesh``) it is the
+        forward that gathers the parameters of the module's own group."""
+        return fn(self, *args, **kwargs)
+
 
 def _uniform_(t, bound, generator):
     t.uniform_(-bound, bound, generator=generator)

@@ -7,7 +7,10 @@ modules' state dicts carry the reference checkpoint names and shapes;
 layouts. Feature maps are NHWC at every public function, as in the
 reference; convs permute to NCHW inside. Weights are stored fp32 and cast to
 the activation dtype at use. ``linear_apply`` is the one dispatch point for
-a linear module: an ``nn.Linear``, or a ``Q8Linear`` of the int8 decode.
+a linear module: an ``nn.Linear``, or a ``Q8Linear`` of the int8 decode,
+and the one place tensor parallelism enters: a linear that
+``parallel.tp.apply_tp`` gave a ``tp`` role holds its local shard and runs
+through that role's communication regions.
 """
 
 from __future__ import annotations
@@ -30,9 +33,14 @@ def linear_apply(m, x):
     """A linear module applied to x (the reference's ``linear``, which
     dispatches on a quantized parameter dict): a ``Q8Linear`` goes to the
     int8 kernel wrapper, or to its plain version under
-    ``routing.kernel_route("plain")``; an ``nn.Linear`` to ``linear``."""
+    ``routing.kernel_route("plain")``; an ``nn.Linear`` with a tensor-parallel
+    role (``parallel.tp``) to that role; any other ``nn.Linear`` to
+    ``linear``."""
     if isinstance(m, Q8Linear):
         return q8_linear(m, x, plain=routing.current() == "plain")
+    role = getattr(m, "tp", None)
+    if role is not None:
+        return role(x, m.weight, m.bias)
     return linear(x, m.weight, m.bias)
 
 

@@ -5,13 +5,19 @@
         (--latents-file lat.npy | --data-dir imgs/ | --synthetic) [--vae-path sd3.pt] \\
         [--steps 1000] [--batch-size 32] [--accum N] [--device cuda]
     torchrun --standalone --nproc_per_node N -m selftoktokenizer_tpu_torch.tools.train_tokenizer ...
+        [--mesh-fsdp F]
 
 A step: a batch of latents (a latents file, random latents, or images that
 the SD3 VAE encodes on the device in bf16) -> ``train.trainer.train_step``
 (the flow loss, the VQ EMA and AdamW), ``train_step_accum`` for ``--accum
 N`` (the global batch in N microbatches), or ``dp_train_step`` when
 ``torchrun`` starts more than one rank (``--batch-size`` is the global
-batch; each rank takes its rows, its shards for a tar corpus). Each step's
+batch; each rank takes its rows, its shards for a tar corpus). With
+``--mesh-fsdp F`` the ranks form the mesh (world / F, F, 1) and the train
+state is sharded over it with FSDP2 (``parallel.mesh.shard_tokenizer``):
+weights, gradients, AdamW moments and the EMA copy are each held in F
+shards, evals and reconstructions run on every rank, and a checkpoint is
+gathered whole (a run resumes on any mesh). Each step's
 draws come from a generator seeded by (config seed, step), so a resumed run
 draws what the uninterrupted one drew. The loss stays on the device until a
 log line prints it.
@@ -28,7 +34,8 @@ scores them against the corpus images (with the VAE's own ceiling at step
 the last line of standard output is ``{"final_loss", "steps"}``.
 
 The reference's ``--pretrained`` is left out: it parses it and never reads
-it. ``--mesh-fsdp`` above 1 raises (FSDP is not ported);
+it. ``--mesh-fsdp`` must divide the number of ranks (``make_mesh`` raises
+``ValueError`` otherwise, in one process for any F above 1);
 ``--donate-state`` changes nothing (a PyTorch step updates the state in
 place).
 """
@@ -120,7 +127,8 @@ def build_parser():
                         "microbatches with one VQ statistics / EMA apply per step "
                         "(train_step_accum)")
     p.add_argument("--mesh-fsdp", type=int, default=1,
-                   help="FSDP width; only 1 (FSDP is not ported, make_mesh raises)")
+                   help="FSDP width: the ranks form the mesh (world / N, N, 1) and the train "
+                        "state is sharded N ways")
     p.add_argument("--donate-state", action="store_true",
                    help="accepted for the reference's command lines; PyTorch already "
                         "updates the train state in place")
@@ -160,13 +168,18 @@ def load_vae(vae_path, seed, device):
 @contextlib.contextmanager
 def swapped_weights(module, tensors):
     """Run the block with the module's parameters of those names holding
-    ``tensors`` ({name: tensor}, an EMA copy): the storages are swapped in
-    and back, nothing is copied."""
+    ``tensors`` ({name: tensor}, an EMA copy): the values are exchanged in
+    place and back, one leaf at a time (a sharded parameter's storage is
+    FSDP2's, so its values move and not its storage)."""
     named = dict(module.named_parameters())
 
+    @torch.no_grad()
     def swap():
-        for k in tensors:
-            named[k].data, tensors[k] = tensors[k], named[k].data
+        for k, e in tensors.items():
+            p = named[k].detach()
+            tmp = p.clone()
+            p.copy_(e)
+            e.copy_(tmp)
     swap()
     try:
         yield
@@ -333,6 +346,7 @@ def train(args):
     device = common.resolve_device(args.device)
     pdist.init(backend="gloo" if device.type == "cpu" else None)
     rank, world = pdist.rank_and_world()
+    mesh = None
     if args.mesh_fsdp != 1 or world > 1:
         mesh = make_mesh(data=world // args.mesh_fsdp, fsdp=args.mesh_fsdp)
         common.log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over {world} ranks")
@@ -346,7 +360,10 @@ def train(args):
                              warmup_steps=args.warmup, grad_norm=args.grad_norm,
                              ema_decay=args.ema_decay, schedule=args.lr_schedule,
                              end_lr_ratio=args.end_lr_ratio, max_steps=args.steps)
-    state = trainer.make_train_state(build_tokenizer(tcfg, seed, device), tcfg, tc)
+    # FSDP shards the state; a data-only mesh keeps it whole on every rank
+    state = trainer.make_train_state(build_tokenizer(tcfg, seed, device), tcfg, tc,
+                                     mesh=mesh if args.mesh_fsdp > 1 else None)
+    sharded = state.sharding is not None
     start = 0
     if args.resume_from_steps:
         ck = os.path.join(args.ckpt_dir, f"step_{args.resume_from_steps}")
@@ -390,11 +407,13 @@ def train(args):
 
     @torch.no_grad()
     def eval_once(x0):
-        ehs, _ = encoder_apply(state.model.encoder, tcfg.encoder, x0)
         noise = torch.randn(x0.shape, generator=common.generator(device, seed, EVAL_NOISE),
                             device=device)
-        pred = diffusion_decode(state.model, tcfg, ehs, noise, sched, step_k,
-                                tcfg.context_see_xt)
+
+        def decode(tok):
+            ehs, _ = encoder_apply(tok.encoder, tcfg.encoder, x0)
+            return diffusion_decode(tok, tcfg, ehs, noise, sched, step_k, tcfg.context_see_xt)
+        pred = state.model.run(decode)
         mse = torch.mean((pred - x0) ** 2)
         return mse, 10.0 * torch.log10(torch.var(x0, unbiased=False) / mse), pred
 
@@ -437,16 +456,23 @@ def train(args):
         recon_vae = load_vae(args.vae_path, seed, device)
 
     def save_recon(batch, i):
+        """A decoded sample of the batch's first row, written by rank 0 (a
+        sharded model decodes on every rank)."""
         from selftoktokenizer_tpu_torch.models.vae import SD3LatentFormat, vae_decode
         from selftoktokenizer_tpu_torch.pipeline.preprocess import save_image
 
         x0 = batch[:1]
+        sch, sk = decode_sampler(tcfg, 8)
+        noise = torch.randn(x0.shape, generator=common.generator(device, seed, RECON_NOISE + i),
+                            device=device)
+
+        def decode(tok):
+            ehs, _ = encoder_apply(tok.encoder, tcfg.encoder, x0)
+            return diffusion_decode(tok, tcfg, ehs, noise, sch, sk, True)
         with torch.no_grad():
-            ehs, _ = encoder_apply(state.model.encoder, tcfg.encoder, x0)
-            sch, sk = decode_sampler(tcfg, 8)
-            noise = torch.randn(x0.shape, generator=common.generator(device, seed, RECON_NOISE + i),
-                                device=device)
-            lat8 = diffusion_decode(state.model, tcfg, ehs, noise, sch, sk, True)
+            lat8 = state.model.run(decode)
+            if rank != 0:
+                return
             vae, vcfg = recon_vae
             img = vae_decode(vae, vcfg, SD3LatentFormat.process_out(lat8).to(torch.bfloat16))
             img = (torch.clamp(img.float(), -1, 1) + 1) / 2
@@ -486,10 +512,13 @@ def train(args):
         hit_interval = args.ckpt_interval and (i + 1) % args.ckpt_interval == 0
         hit_epoch = args.save_per_epochs and epoch_done is not None \
             and epoch_done % args.save_per_epochs == 0
-        if (hit_interval or hit_epoch) and rank == 0:
-            os.makedirs(ckpt_dir, exist_ok=True)
-            trainer.save_train_state(os.path.join(ckpt_dir, f"step_{i + 1}"), state)
-        if args.recon_interval and (i + 1) % args.recon_interval == 0 and rank == 0:
+        if (hit_interval or hit_epoch) and (rank == 0 or sharded):
+            # a sharded state is gathered on every rank, written by rank 0
+            if rank == 0:
+                os.makedirs(ckpt_dir, exist_ok=True)
+            trainer.save_train_state(os.path.join(ckpt_dir, f"step_{i + 1}"), state,
+                                     write=rank == 0)
+        if args.recon_interval and (i + 1) % args.recon_interval == 0 and (rank == 0 or sharded):
             save_recon(batch, i)
     return {"final_loss": meter.avg or float(logs["loss"]), "steps": args.steps,
             "timing": clock.summary(), "state": state}

@@ -22,6 +22,16 @@ quantities (phase B, ``models.vq.vq_microbatch_surrogate``), so its step
 equals ``train_step`` on the whole batch while the activations stay at one
 microbatch. ``dp_train_step`` is the same step with the microbatches placed
 on the ranks of a ``torch.distributed`` group.
+
+Sharded training: ``make_train_state(..., mesh=)`` shards the tokenizer
+over a ('data', 'fsdp', 'tensor') mesh (``parallel.mesh.shard_tokenizer``:
+FSDP2 over data x fsdp, the decoder split over tensor), and
+``dp_train_step`` then places the rows on the data x fsdp ranks, the
+tensor ranks of a group sharing theirs. FSDP2 averages the gradients over
+those ranks; the clip takes the norm of the whole gradients
+(``Sharding.grad_norm``); the codebook is written into every shard; a
+checkpoint holds the whole, unsharded state, and restores into a state
+sharded or not.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from selftoktokenizer_tpu_torch.core.checkpoint import (
     ema_update, restore_checkpoint, save_checkpoint)
@@ -104,24 +115,34 @@ def global_norm(tensors):
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+def _local(t):
+    """A tensor's local storage: a DTensor's shard, else the tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm):
+def clip_by_global_norm_(grads, max_norm, norm=None):
     """Scale the gradients in place by max/norm where norm >= max (0: no
-    clipping), norm being one global norm over all of them. Returns the
-    norm before clipping."""
-    norm = global_norm(grads)
+    clipping), norm being one global norm over all of them (given, for
+    gradients that are shards: ``Sharding.grad_norm``). Returns the norm
+    before clipping."""
+    if norm is None:
+        norm = global_norm(grads)
     if max_norm > 0 and float(norm) >= max_norm:
         for g in grads:
+            g = _local(g)
             g.div_(norm.to(g.dtype)).mul_(max_norm)
     return norm
 
 
 @torch.no_grad()
-def apply_update(opt, params, tc: TrainConfig, step):
+def apply_update(opt, params, tc: TrainConfig, step, sharding=None):
     """One optimizer step from the gradients in ``.grad``: clip by one
-    global norm over all ``params``, set each group's learning rate for
-    ``step``, step. Returns the norm before clipping."""
-    norm = clip_by_global_norm_([p.grad for p in params], tc.grad_norm)
+    global norm over all ``params`` (their whole gradients under
+    ``sharding``), set each group's learning rate for ``step``, step.
+    Returns the norm before clipping."""
+    norm = None if sharding is None else sharding.grad_norm(params)
+    norm = clip_by_global_norm_([p.grad for p in params], tc.grad_norm, norm)
     for group in opt.param_groups:
         group["lr"] = lr_at(group["base_lr"], tc, step)
     opt.step()
@@ -158,11 +179,12 @@ class TokenizerTrainState:
     vq_state: vq_mod.VQState
     ema_params: Optional[dict]      # name -> tensor
     step: int = 0
+    sharding: Optional[object] = None   # parallel.mesh.Sharding of a sharded model
 
     def release(self):
         """Drop the references to the modules, the optimizer and the
         states, so their device memory can be given back."""
-        self.model = self.opt = self.vq_state = self.ema_params = None
+        self.model = self.opt = self.vq_state = self.ema_params = self.sharding = None
 
 
 def _ema_copy(module):
@@ -170,15 +192,29 @@ def _ema_copy(module):
 
 
 def make_train_state(tok: ImageTokenizer, tcfg: TokenizerConfig, tc: TrainConfig,
-                     vq_state=None):
+                     vq_state=None, mesh=None, tp=None):
     """A fresh train state over ``tok`` (trained in place). vq_state: the
-    quantizer's EMA state to start from (a checkpoint's), else a fresh one."""
+    quantizer's EMA state to start from (a checkpoint's), else a fresh one.
+    mesh: a ``parallel.mesh.make_mesh`` mesh to shard ``tok`` over
+    (``shard_tokenizer``; tp as there) before the optimizer and the EMA
+    copy are built from its shards; the state then trains through
+    ``dp_train_step``."""
     if vq_state is None:
         vq_state = vq_mod.vq_state_init(tok.encoder.quantizer, tcfg.k)
     dev = tok.encoder.quantizer.embed.device
+    sharding = None
+    if mesh is not None:
+        from selftoktokenizer_tpu_torch.parallel.mesh import shard_tokenizer
+        sharding = shard_tokenizer(tok, mesh, tp)
     return TokenizerTrainState(
         model=tok, opt=make_optimizer(tok, tc), vq_state=vq_state.to(dev),
-        ema_params=_ema_copy(tok) if tc.ema_decay > 0 else None)
+        ema_params=_ema_copy(tok) if tc.ema_decay > 0 else None, sharding=sharding)
+
+
+def _unsharded(state: TokenizerTrainState, what):
+    if state.sharding is not None:
+        raise ValueError(f"{what} takes an unsharded state; a sharded one trains through "
+                         "dp_train_step")
 
 
 def tokenizer_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, rng=None,
@@ -187,6 +223,7 @@ def tokenizer_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, rn
     ``.grad``. Returns (loss, aux, params) with aux as ``tokenizer_loss``
     gives it. draws: explicit t, noise, drop_ids, gumbel_noise,
     kmeans_idx, react_uniforms, warm_ids."""
+    _unsharded(state, "tokenizer_grads")
     state.model.train()
     loss, aux = tokenizer_loss(state.model, tcfg, batch, rng=rng, vq_state=state.vq_state,
                                **draws)
@@ -205,14 +242,22 @@ def train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainConfi
     return _finish_step(state, tc, params, aux["vq_state"], logs)
 
 
+CODEBOOK = "encoder.quantizer._codebook.embed"
+
+
 def _finish_step(state: TokenizerTrainState, tc: TrainConfig, params, vq_state, logs):
     """The update from the gradients in ``.grad``: the optimizer step (one
     global clip), the new VQ state with its codebook written into the
-    quantizer (the encode path reads it there), the EMA copy."""
-    logs["grad_norm"] = apply_update(state.opt, params, tc, state.step)
+    quantizer (the encode path reads it there; each shard of a sharded
+    one), the EMA copy."""
+    logs["grad_norm"] = apply_update(state.opt, params, tc, state.step, state.sharding)
     state.vq_state = vq_state
+    embed = state.model.encoder.quantizer._codebook.embed
     with torch.no_grad():
-        state.model.encoder.quantizer._codebook.embed[0].copy_(vq_state.embed)
+        if state.sharding is None:
+            embed[0].copy_(vq_state.embed)
+        else:
+            state.sharding.set_full_(CODEBOOK, embed, vq_state.embed[None])
     if state.ema_params is not None:
         ema_update(state.ema_params, dict(state.model.named_parameters()), tc.ema_decay)
     state.step += 1
@@ -223,9 +268,10 @@ def _phase_a(state: TokenizerTrainState, tcfg: TokenizerConfig, outs, rng, vq_dr
     """The quantizer's step on the global batch's pre-VQ outputs, without
     gradient: (ids, phase-A loss, new VQ state, VQ logs, extras)."""
     with torch.no_grad():
-        _, ids, quan_loss, vq_state, vq_logs, extras = vq_mod.vq_train_apply(
-            state.model.encoder.quantizer, state.vq_state, outs, tcfg.quantizer, rng=rng,
-            return_extras=True, **vq_draws)
+        _, ids, quan_loss, vq_state, vq_logs, extras = state.model.run(
+            lambda tok: vq_mod.vq_train_apply(
+                tok.encoder.quantizer, state.vq_state, outs, tcfg.quantizer, rng=rng,
+                return_extras=True, **vq_draws))
     return ids, quan_loss, vq_state, vq_logs, extras
 
 
@@ -234,8 +280,8 @@ def _surrogate_backward(tok, tcfg: TokenizerConfig, batch, rows, ids, extras, t,
     the frozen global quantities, backward into ``.grad`` (accumulating).
     Returns the rows' dm_mse."""
     inj = {"ids": ids[rows], "embed_used": extras["embed_used"], "g_ap": extras["g_ap"]}
-    loss, aux = tokenizer_loss(tok, tcfg, batch, t=t[rows], noise=noise[rows],
-                               drop_ids=None if drop is None else drop[rows], vq_injected=inj)
+    loss, aux = tok.run(tokenizer_loss, tcfg, batch, t=t[rows], noise=noise[rows],
+                        drop_ids=None if drop is None else drop[rows], vq_injected=inj)
     loss.backward()
     return aux["log_dict"]["dm_mse"]
 
@@ -258,8 +304,11 @@ def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micr
     world): the pre-VQ outputs are gathered, rank 0's phase A is broadcast
     (the GPU's scatter-adds are not bit-deterministic, and the ranks'
     codebooks would otherwise drift apart), and the gradients are averaged
-    by all_reduce. draws: as ``tokenizer_grads``'s, for the global batch (t,
-    noise, drop_ids; kmeans_idx, react_uniforms, gumbel_noise) and the same
+    by all_reduce. A sharded state (``state.sharding``) takes its data x
+    fsdp group as ``group``, global rank 0's phase A for every rank, and
+    FSDP2's averaged gradients. draws: as ``tokenizer_grads``'s, for the
+    global batch (t, noise, drop_ids; kmeans_idx, react_uniforms,
+    gumbel_noise) and the same
     on every rank, the missing ones drawn from rng (seeded alike on every
     rank) as ``tokenizer_loss`` draws them, so a generator seeded alike
     gives ``train_step`` the same draws; microbatch i of rank r takes global
@@ -267,6 +316,9 @@ def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micr
     B_l = batch.shape[0]
     if n_micro < 1 or B_l % n_micro:
         raise ValueError(f"accum_grads: batch {B_l} is not a multiple of n_micro={n_micro}")
+    sharding = state.sharding
+    if sharding is not None:
+        group = sharding.dp_group
     r, w = (0, 1) if group is None else pdist.rank_and_world(group)
     tok = state.model
     tok.train()
@@ -274,7 +326,7 @@ def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micr
                                 draws.pop("t", None), draws.pop("noise", None),
                                 draws.pop("drop_ids", None), batch.dtype)
     with torch.no_grad():
-        outs, _ = pre_vq_outs(tok.encoder, tcfg, batch)
+        outs, _ = tok.run(lambda m: pre_vq_outs(m.encoder, tcfg, batch))
     if group is not None:
         outs = pdist.all_gather_rows(outs, group)
     ids, quan_loss, vq_state, vq_logs, extras = _phase_a(state, tcfg, outs, rng, draws)
@@ -286,7 +338,8 @@ def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micr
         keys = sorted(vq_logs)
         scalars = torch.stack([quan_loss.float()] + [vq_logs[k].float() for k in keys])
         pdist.broadcast_([ids, extras["embed_used"], extras["g_ap"], scalars]
-                         + list(vq_state.asdict().values()), group=group)
+                         + list(vq_state.asdict().values()),
+                         group=None if sharding is not None else group)
         quan_loss = scalars[0]
         vq_logs = {k: v.to(vq_logs[k].dtype) for k, v in zip(keys, scalars[1:].unbind(0))}
 
@@ -301,12 +354,15 @@ def accum_grads(state: TokenizerTrainState, tcfg: TokenizerConfig, batch, n_micr
                                       slice(lo, lo + B_m), ids, extras, t, noise, drop))
     dm = torch.stack(dm).detach().mean()
     _fill_zeros(params)
-    if group is None:
+    if group is not None and sharding is None:
+        all_reduce_grads_(params, group, n_micro * w)
+    else:
+        # one device, or FSDP2's gradients, each microbatch's already
+        # averaged over the ranks
         with torch.no_grad():
             for p in params:
                 p.grad.div_(n_micro)
-    else:
-        all_reduce_grads_(params, group, n_micro * w)
+    if group is not None:
         dm = dm.float().reshape(1).to(pdist.comm_device(group))
         dist.all_reduce(dm, group=group)
         dm = (dm[0] / w).to(quan_loss.device)
@@ -321,6 +377,7 @@ def train_step_accum(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: Trai
     the gradient averaged over the microbatches), with the activations of
     one microbatch. Returns (state, logs) as ``train_step``; logs['loss'] is
     the microbatches' mean dm_mse plus the global quantizer loss."""
+    _unsharded(state, "train_step_accum")
     logs, vq_state, params = accum_grads(state, tcfg, batch, n_micro, rng=rng, **draws)
     return _finish_step(state, tc, params, vq_state, logs)
 
@@ -358,7 +415,12 @@ def dp_train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainCo
     outputs are gathered, phase A runs on the global batch (rank 0's result
     broadcast), each rank backpropagates its rows, the gradients are
     averaged by all_reduce over flattened buckets, and every rank clips and
-    steps alike. Returns (state, logs) as ``train_step``."""
+    steps alike. Returns (state, logs) as ``train_step``.
+
+    A sharded state (``make_train_state(..., mesh=)``) ignores ``group``:
+    local_batch is then this rank's rows at its data x fsdp position
+    (``state.sharding.local_rows``), the same on the ranks of a tensor
+    group, and FSDP2 reduces the gradients."""
     if not dist.is_initialized():
         raise RuntimeError("dp_train_step needs an initialized process group "
                            "(parallel.distributed.init); train_step_accum is the one-device step")
@@ -368,29 +430,81 @@ def dp_train_step(state: TokenizerTrainState, tcfg: TokenizerConfig, tc: TrainCo
     return _finish_step(state, tc, params, vq_state, logs)
 
 
-def save_train_state(path, state: TokenizerTrainState):
-    """Write the whole train state: parameters, optimizer moments, VQ EMA
-    buffers, EMA parameters, step."""
-    tree = {"params": state.model.state_dict(), "opt_state": state.opt.state_dict(),
-            "vq_state": state.vq_state.asdict(), "step": state.step}
-    if state.ema_params is not None:
-        tree["ema_params"] = state.ema_params
-    save_checkpoint(path, tree)
+def _opt_names(state: TokenizerTrainState):
+    """The parameter name of each index of the optimizer's state dict."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.opt.param_groups for p in g["params"]]
+
+
+def _map_opt_state(sd, names, fn):
+    """The optimizer state dict ``sd`` with fn(name, tensor) applied to
+    each moment (every state tensor but the scalar step)."""
+    return {**sd, "state": {i: {k: fn(names[i], v) if torch.is_tensor(v) and v.ndim else v
+                                for k, v in st.items()}
+                            for i, st in sd["state"].items()}}
+
+
+def train_state_tree(state: TokenizerTrainState):
+    """The whole train state as ``save_train_state`` writes it: parameters,
+    optimizer moments, VQ EMA buffers, EMA parameters, step; a sharded
+    state's leaves gathered whole (a collective: every rank calls it)."""
+    sh = state.sharding
+    if sh is None:
+        params, opt_state, ema = (state.model.state_dict(), state.opt.state_dict(),
+                                  state.ema_params)
+    else:
+        params = {n: sh.full(n, p.detach()) for n, p in state.model.named_parameters()}
+        opt_state = _map_opt_state(state.opt.state_dict(), _opt_names(state), sh.full)
+        ema = None if state.ema_params is None else {
+            n: sh.full(n, e) for n, e in state.ema_params.items()}
+    tree = {"params": params, "opt_state": opt_state, "vq_state": state.vq_state.asdict(),
+            "step": state.step}
+    if ema is not None:
+        tree["ema_params"] = ema
+    return tree
+
+
+def save_train_state(path, state: TokenizerTrainState, write=True):
+    """Write the whole train state (``train_state_tree``): one unsharded
+    file, whichever mesh the state is sharded over. Every rank of a sharded
+    state calls it (the leaves are gathered); ``write`` False gathers
+    without writing (the ranks but one)."""
+    tree = train_state_tree(state)
+    if write:
+        save_checkpoint(path, tree)
 
 
 def restore_train_state(path, like: TokenizerTrainState, exclude_opt=False):
     """Load a ``save_train_state`` file into ``like`` (a freshly built state
-    of the same model) and return it. ``exclude_opt`` keeps like's fresh
-    optimizer state instead of the saved moments."""
+    of the same model, sharded over any mesh or not) and return it.
+    ``exclude_opt`` keeps like's fresh optimizer state instead of the saved
+    moments."""
     raw = restore_checkpoint(path)
-    like.model.load_state_dict(raw["params"], strict=True)
+    sh = like.sharding
+    if sh is None:
+        like.model.load_state_dict(raw["params"], strict=True)
+    else:
+        named = dict(like.model.named_parameters())
+        if set(named) != set(raw["params"]):
+            raise KeyError(f"{path}: the parameters differ from the model's: "
+                           f"{sorted(set(named) ^ set(raw['params']))[:5]}")
+        for n, p in named.items():
+            sh.set_full_(n, p, raw["params"][n])
     if not exclude_opt:
-        like.opt.load_state_dict(raw["opt_state"])
-    dev = like.model.encoder.quantizer.embed.device
+        opt_state = raw["opt_state"]
+        if sh is not None:
+            names, named = _opt_names(like), dict(like.model.named_parameters())
+            opt_state = _map_opt_state(opt_state, names,
+                                       lambda n, v: sh.to_sharded(n, named[n], v))
+        like.opt.load_state_dict(opt_state)
+    dev = like.model.encoder.quantizer._codebook.embed.device
     like.vq_state = vq_mod.VQState(**raw["vq_state"]).to(dev)
     if like.ema_params is not None and raw.get("ema_params") is not None:
         for k, e in like.ema_params.items():
-            e.copy_(raw["ema_params"][k])
+            if sh is None:
+                e.copy_(raw["ema_params"][k])
+            else:
+                sh.set_full_(k, e, raw["ema_params"][k])
     like.step = int(raw["step"])
     return like
 

@@ -40,11 +40,12 @@ def test_yml_value_wins_over_the_flag(tmp_path):
 
 
 def test_mesh_flags_above_one_raise():
+    # one process is a world of one: a mesh of 2 or 4 ranks is not its shape
     _, args = cli.parse_args(["--mesh-fsdp", "2"])
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    with pytest.raises(ValueError, match="fsdp=2.*world size 1"):
         make_mesh(args.mesh_data, args.mesh_fsdp, args.mesh_tensor)
     _, args = cli.parse_args(["--mesh-tensor", "4"])
-    with pytest.raises(NotImplementedError, match="tensor"):
+    with pytest.raises(ValueError, match="tensor=4.*world size 1"):
         make_mesh(args.mesh_data, args.mesh_fsdp, args.mesh_tensor)
 
 

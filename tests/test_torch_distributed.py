@@ -17,8 +17,9 @@ package's seeded tree carried into the port (``tokenizer_from_jax_tree``),
 the draws JAX's own. Also: ``allgather_f64`` is bit-exact,
 ``process_slice`` / ``local_rows`` / ``all_gather_rows`` give the global
 rows in rank order, ``psum_metrics`` averages, the mesh keeps its axis
-names and refuses FSDP and TP, and ``init`` raises when cluster variables
-are set but no group can form."""
+names, builds any shape whose product is the world size and refuses any
+other, and ``init`` raises when cluster variables are set but no group can
+form."""
 
 import os
 import threading
@@ -253,9 +254,11 @@ mesh = pmesh.make_mesh()
 assert mesh.mesh_dim_names == ("data", "fsdp", "tensor") and tuple(mesh.shape) == (world, 1, 1)
 m = pmesh.psum_metrics({"loss": float(rank), "n": torch.tensor(2.0 * rank)}, mesh.get_group("data"))
 assert abs(float(m["loss"]) - (world - 1) / 2) < 1e-6 and abs(float(m["n"]) - (world - 1)) < 1e-6
-for kw in ({"fsdp": 2}, {"tensor": 2}):
-    with pytest.raises(NotImplementedError, match="FSDP and TP"):
+for kw in ({"fsdp": 4}, {"data": 2, "tensor": 2}):       # not the world's shape
+    with pytest.raises(ValueError, match="world size"):
         pmesh.make_mesh(**kw)
+for kw, want in (({"fsdp": 2}, (1, 2, 1)), ({"tensor": 2}, (1, 1, 2))):
+    assert tuple(pmesh.make_mesh(**kw).shape) == want
 t = torch.full((3,), float(rank)), torch.tensor([rank == 0])
 pdist.broadcast_(list(t))
 assert torch.equal(t[0], torch.zeros(3)) and bool(t[1])

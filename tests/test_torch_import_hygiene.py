@@ -62,7 +62,10 @@ def test_port_has_every_module_of_the_slice():
             # the training drivers
             "core/export.py", "tools/gen_corpus.py", "tools/convert_ckpt.py",
             "tools/train_data.py", "tools/train_tokenizer.py", "tools/train_vae.py",
-            "tools/train_renderer.py", "tools/certify_tiers.py", "tools/demo_e2e.py"]
+            "tools/train_renderer.py", "tools/certify_tiers.py", "tools/demo_e2e.py",
+            # sharded training and the last utilities
+            "parallel/tp.py", "parallel/dryrun.py", "utils/guards.py", "utils/profiling.py",
+            "utils/benchutil.py", "utils/flops.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing, missing
 

@@ -335,7 +335,7 @@ def test_flags_with_nothing_to_do_and_the_missing_gpu(lat_file, tmp_path):
     assert args.donate_state and not hasattr(args, "pretrained")
     with pytest.raises(SystemExit):
         train_tokenizer.build_parser().parse_args(["--pretrained", "x.pth"])
-    with pytest.raises(NotImplementedError, match="fsdp=2"):
+    with pytest.raises(ValueError, match="fsdp=2 .* world size 1"):
         _run(_lat_argv(lat_file, tmp_path, ["--steps", "1", "--mesh-fsdp", "2"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
