@@ -213,26 +213,40 @@ def active_keys(mask, B, Lk):
 def attn_bound(B, H, Lq, Lk, D, dtype, mask):
     """Both products over each row's active keys only, against reading q
     and the active keys' k and v, writing the output, and reading the mask
-    once."""
+    once: see _bound."""
     nk = active_keys(mask, B, Lk)
     flops = 4.0 * H * Lq * D * nk
     item = 2 if dtype == torch.bfloat16 else 4
     nbytes = (2 * B * Lq + 2 * nk) * D * H * item + (0 if mask is None else B * Lk)
-    t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+    return _bound(flops, nbytes, dtype)
+
+
+def _bound(flops, nbytes, dtype):
+    """(ms, by, fp32 CUDA-core ms or None) of `flops` products of the type
+    and `nbytes` moved. The operations at the card's fastest peak for the
+    type: bf16 on the tensor cores; fp32 on the tensor cores in split TF32
+    (three TF32 passes a product at 495 TFLOP/s, as fp32-accurate as the
+    card's tensor cores go, and the kernels' own route). For fp32 the third
+    value is the same work on the CUDA cores at 67 TFLOP/s."""
     t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    if dtype == torch.bfloat16:
+        t_ops, cuda_core = flops / PEAK_BF16_FLOPS, None
+    else:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+        cuda_core = max(flops / PEAK_FP32_FLOPS, t_bytes) * 1e3
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", cuda_core
 
 
 def attn_backward_bound(B, H, Lq, Lk, D, dtype, mask):
-    """The backward's five products (the scores again, dV, dP, dQ, dK) in
-    fp32 on the CUDA cores over each row's active keys, against reading q,
-    dO and the active keys' k, v, and writing dq, dk, dv once (dk and dv
-    for every key: a masked key's are zeros)."""
+    """The backward's five products (the scores again, dV, dP, dQ, dK) over
+    each row's active keys, against reading q, dO and the active keys' k, v,
+    and writing dq, dk, dv once (dk and dv for every key: a masked key's are
+    zeros): see _bound."""
     nk = active_keys(mask, B, Lk)
     item = 2 if dtype == torch.bfloat16 else 4
-    t_ops = 10.0 * H * Lq * D * nk / PEAK_FP32_FLOPS
-    t_bytes = (3 * B * Lq + 2 * nk + 2 * B * Lk) * D * H * item / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    flops = 10.0 * H * Lq * D * nk
+    nbytes = (3 * B * Lq + 2 * nk + 2 * B * Lk) * D * H * item
+    return _bound(flops, nbytes, dtype)
 
 
 def attn_exp_bound(B, H, Lq, Lk, mask):
@@ -254,9 +268,18 @@ def vq_bound(N, C, D=16):
     return t * 1e3, "operations" if t > t_bytes else "bytes", fp32_ms
 
 
-def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="dense"):
+def max_abs_score(q, k):
+    """The largest |q . k| / sqrt(D) of a case."""
+    qf, kf = q.detach().float(), k.detach().float()
+    return float((qf @ kf.transpose(-1, -2)).abs().max()) / math.sqrt(q.shape[-1])
+
+
+def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="dense",
+              qk_std=1.0):
     """layout "qkv": q, k and v are the strided views the models' qkv split
-    makes of one [B, L, 3, H, D] tensor (row stride 3*H*D, head stride D)."""
+    makes of one [B, L, 3, H, D] tensor (row stride 3*H*D, head stride D).
+    qk_std: the std of q and k (dense layout; 2.5 gives scores whose
+    largest reaches about 30, where fp32 rounding shows most)."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -268,8 +291,8 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
         if q.stride() != (Lq * 3 * H * D, D, 3 * H * D, 1):
             raise RuntimeError(f"{name}: not the qkv split's strides")
     else:
-        q = torch.randn((B, H, Lq, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
-        k = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+        q = (torch.randn((B, H, Lq, D), generator=gen, device=dev) * qk_std).to(dtype)
+        k = (torch.randn((B, H, Lk, D), generator=gen, device=dev) * qk_std).to(dtype)
         v = torch.randn((B, H, Lk, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
     mask = None
     pos = torch.arange(Lk, device=dev)[None, :]
@@ -303,6 +326,12 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
     elif mask_kind == "full_row":
         mask = torch.rand((B, Lk), generator=gen, device=dev) > 0.5
         mask[0, :] = False            # batch 0: every key masked -> uniform mean
+    elif mask_kind == "tiles":
+        # whole 64-key tiles masked (the split-TF32 kernels leave them out
+        # where the row has an active key), and batch 0 with every key masked
+        mask = torch.ones((B, Lk), dtype=torch.bool, device=dev)
+        mask[:, 64:192] = False
+        mask[0, :] = False
     before = fa.launch_count
     out = fa.flash_sdpa_key_mask(q, k, v, mask)
     torch.cuda.synchronize()
@@ -315,7 +344,7 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
         raise RuntimeError(f"{name}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
     tol = ATTN_TOL[dtype]
-    if mask_kind == "full_row":
+    if mask_kind in ("full_row", "tiles"):
         uni = v[0].float().mean(dim=1, keepdim=True).expand(-1, Lq, -1)
         uerr = (out[0].float() - uni).abs().max().item()
         if uerr > tol:
@@ -327,11 +356,22 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
         raise RuntimeError(f"{name}: the output is not laid out [B, Lq, H, D]")
     rec = {"case": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
            "mask": mask_kind, "layout": layout, "max_abs_err": err, "tol": tol}
+    if qk_std != 1.0:
+        # how far each of the two is from the float64 function: at such
+        # scores fp32's own rounding is most of their difference
+        sd = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(D)
+        exact = torch.matmul(torch.softmax(sd, dim=-1), v.double())
+        rec.update(max_abs_score=max_abs_score(q, k),
+                   float64_err=(out.double() - exact).abs().max().item(),
+                   plain_float64_err=(ref.double() - exact).abs().max().item())
     if dtype == torch.bfloat16:
         rec["launch"] = {"stages": fa.STAGES[D], "grid": [-(-Lq // fa.BM), B * H],
                          "smem": fa.smem_bytes(D)}
+    else:
+        rec["launch"] = {"stages": fa.TF32_STAGES, "grid": [-(-Lq // 64), B * H],
+                         "smem": fa.tf32_smem_bytes("forward", D, dtype)}
     if timed:
-        bound, by = attn_bound(B, H, Lq, Lk, D, dtype, mask)
+        bound, by, cuda_core = attn_bound(B, H, Lq, Lk, D, dtype, mask)
         am = None if mask is None else mask[:, None, None, :]
         rec.update(
             ms=time_ms(lambda: fa.flash_sdpa_key_mask(q, k, v, mask)),
@@ -340,25 +380,29 @@ def attn_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, gen, timed, layout="d
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
             bound_ms=bound, bound_by=by, exp_bound_ms=attn_exp_bound(B, H, Lq, Lk, mask))
         rec["share"] = bound / rec["ms"]
+        if cuda_core is not None:
+            rec.update(fp32_cuda_core_bound_ms=cuda_core, fp32_cuda_core_share=cuda_core / rec["ms"])
     log(f"  attention {name}: {json.dumps(rec)}")
     return rec
 
 
-def attn_grad_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, layout, timed, gen):
-    """The wrapper's gradients (kernel forward, the fp32 recompute backward)
-    against autograd through the plain forward, on the same inputs."""
+def attn_grad_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, layout, timed, gen, qk_std=1.0):
+    """The wrapper's gradients (kernel forward with row statistics, the
+    backward kernel) against autograd through the plain forward, on the
+    same inputs; two backward launches on the same inputs bit-equal.
+    qk_std: as for attn_case."""
     dev = "cuda"
     if layout == "qkv":
         leaf = torch.randn((B, Lq, 3, H, D), generator=gen, device=dev).to(dtype).requires_grad_()
         q, k, v = (leaf[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     else:
-        q, k, v = (torch.randn((B, H, L, D), generator=gen, device=dev).to(dtype).requires_grad_()
-                   for L in (Lq, Lk, Lk))
+        q, k, v = ((torch.randn((B, H, L, D), generator=gen, device=dev) * std)
+                   .to(dtype).requires_grad_() for L, std in ((Lq, qk_std), (Lk, qk_std), (Lk, 1.0)))
     mask = None
+    pos = torch.arange(Lk, device=dev)[None, :]
     if mask_kind == "prefix":
-        n_ctx = Lk - 256
+        n_ctx = Lk - 256 if Lk > 256 else Lk // 2
         active = torch.randint(1, n_ctx + 1, (B,), generator=gen, device=dev)
-        pos = torch.arange(Lk, device=dev)[None, :]
         mask = (pos < active[:, None]) | (pos >= n_ctx)
     elif mask_kind == "ones":
         mask = torch.ones((B, Lk), dtype=torch.bool, device=dev)
@@ -367,43 +411,67 @@ def attn_grad_case(fa, name, B, H, Lq, Lk, D, dtype, mask_kind, layout, timed, g
         mask[:, 0] = True
         if mask_kind == "full_row":
             mask[0, :] = False
+    elif mask_kind == "tiles":
+        mask = torch.ones((B, Lk), dtype=torch.bool, device=dev)
+        mask[:, 64:192] = False
+        mask[0, :] = False
     do = torch.randn((B, H, Lq, D), generator=gen, device=dev).to(dtype)
-    before = fa.launch_count
+    before = (fa.launch_count, fa.backward_launch_count)
     out = fa.flash_sdpa_key_mask(q, k, v, mask)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    if fa.launch_count != before + 1:
-        raise RuntimeError(f"{name}: the forward did not launch the kernel once")
+    if (fa.launch_count, fa.backward_launch_count) != (before[0] + 1, before[1] + 1):
+        raise RuntimeError(f"{name}: the forward and the backward did not launch once each")
     ref = torch.autograd.grad(fa.flash_sdpa_key_mask_plain(q, k, v, mask), (q, k, v), do)
     rec = {"case": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
-           "mask": mask_kind, "layout": layout}
+           "mask": mask_kind, "layout": layout, "tol": ATTN_GRAD_TOL[dtype],
+           "launch": {"grid_dq": [-(-Lq // 64), B * H], "grid_dkdv": [-(-Lk // 64), B * H],
+                      "smem_dq": fa.tf32_smem_bytes("dq", D, dtype),
+                      "smem_dkdv": fa.tf32_smem_bytes("dkdv", D, dtype)}}
+    if qk_std != 1.0:
+        rec["max_abs_score"] = max_abs_score(q, k)
+    err_abs = 0.0
     for n, g, r in zip("qkv", grads, ref):
         if g.dtype != dtype or not torch.isfinite(g.float()).all():
             raise RuntimeError(f"{name}: d{n} is not finite {dtype}")
-        err = (g.float() - r.float()).abs().max().item() / max(r.float().abs().max().item(), 1e-30)
+        diff = (g.float() - r.float()).abs().max().item()
+        err_abs = max(err_abs, diff)
+        err = diff / max(r.float().abs().max().item(), 1e-30)
         rec[f"d{n}_rel_err"] = err
         if err > ATTN_GRAD_TOL[dtype]:
             raise RuntimeError(f"{name}: d{n} differs from the plain autograd by {err} of its scale")
+    rec["max_abs_err"] = err_abs
+    # the backward kernel on its own inputs, twice: the same bits (no atomics)
+    q0, k0, v0 = q.detach(), k.detach(), v.detach()
+    o, stats = fa._launch(q0, k0, v0, mask, stats=True)
+    g1 = fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, o, do, stats)
+    g2 = fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, o, do, stats)
+    if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
+        raise RuntimeError(f"{name}: two backward launches on the same inputs differ")
     if timed:
         import torch.nn.functional as F
 
-        q0, k0, v0 = q.detach(), k.detach(), v.detach()
         qr, kr, vr = (t.detach().requires_grad_() for t in (q0, k0, v0))
         out_p = fa.flash_sdpa_key_mask_plain(qr, kr, vr, mask)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q0, k0, v0))
         out_l = F.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=None if mask is None else mask[:, None, None, :])
-        bound, by = attn_backward_bound(B, H, Lq, Lk, D, dtype, mask)
+        bound, by, cuda_core = attn_backward_bound(B, H, Lq, Lk, D, dtype, mask)
         rec.update(
-            backward_ms=time_ms(lambda: fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, do),
-                                reps=3, rounds=3),
-            plain_autograd_backward_ms=time_ms(
+            ms=time_ms(lambda: fa.flash_sdpa_key_mask_backward(q0, k0, v0, mask, o, do, stats)),
+            plain_ms=time_ms(lambda: fa.flash_sdpa_key_mask_backward_plain(
+                q0, k0, v0, mask, o, do, stats), reps=3, rounds=3),
+            plain_autograd_ms=time_ms(
                 lambda: torch.autograd.grad(out_p, (qr, kr, vr), do, retain_graph=True),
                 reps=3, rounds=3),
-            library_backward_ms=time_ms(
+            library_ms=time_ms(
                 lambda: torch.autograd.grad(out_l, (ql, kl, vl), do, retain_graph=True),
                 reps=3, rounds=3),
-            backward_bound_ms=bound, backward_bound_by=by)
+            forward_with_stats_ms=time_ms(lambda: fa._launch(q0, k0, v0, mask, stats=True)),
+            bound_ms=bound, bound_by=by)
+        rec["share"] = bound / rec["ms"]
+        if cuda_core is not None:
+            rec.update(fp32_cuda_core_bound_ms=cuda_core, fp32_cuda_core_share=cuda_core / rec["ms"])
     log(f"  attention grad {name}: {json.dumps(rec)}")
     return rec
 
@@ -774,6 +842,11 @@ def kernel_phase():
         ("fully_masked_row_fp32", 2, 4, 128, 192, 64, f32, "full_row", False),
         ("head_dim_128_bf16", 1, 4, 130, 257, 128, bf, "random", False),
         ("head_dim_128_fp32", 1, 4, 130, 257, 128, f32, "random", False),
+        # the split-TF32 forward: Lq and Lk a multiple of neither tile; whole
+        # masked key tiles left out beside a fully masked row
+        ("ragged_tiles_fp32", 1, 2, 77, 129, 64, f32, "prefix", False),
+        ("masked_tiles_fp32", 2, 4, 130, 330, 64, f32, "tiles", False),
+        ("masked_tiles_head_dim_128_fp32", 2, 4, 130, 330, 128, f32, "tiles", False),
     ]
     # the strided views of the qkv split, passed straight through: the
     # renderer's context rows and the uncond x-only call
@@ -787,6 +860,10 @@ def kernel_phase():
         raise RuntimeError("ragged_tiles_bf16 must be ragged in both tiles")
     attn_recs = [attn_case(fa, *c[:8], gen, c[8]) for c in attn]
     attn_recs += [attn_case(fa, *c[:8], gen, c[8], layout="qkv") for c in attn_qkv]
+    # scores up to about 30 (q and k of std 2.5), where fp32 rounding of the
+    # scores and of the P V sums shows most, at the fp32 tolerance
+    attn_recs += [attn_case(fa, f"large_scores_head_dim_{D}_fp32", 2, 4, 300, 300, D, f32, None,
+                            gen, False, qk_std=2.5) for D in (64, 128)]
     attn_grad = [
         # the training path's calls, then the edges
         ("grad_train_joint_fp32_masked", 4, 24, 768, 768, 64, f32, "prefix", "dense", True),
@@ -795,10 +872,23 @@ def kernel_phase():
         ("grad_multi_tokenizer_joint_fp32_masked", 4, 24, 1280, 1280, 64, f32, "prefix", "dense",
          True),
         ("grad_ragged_bf16", 2, 3, 200, 333, 64, bf, "random", "dense", False),
+        ("grad_ragged_fp32", 2, 3, 200, 333, 64, f32, "random", "dense", False),
+        ("grad_ragged_tiles_fp32", 1, 2, 77, 129, 64, f32, "prefix", "dense", False),
+        ("grad_ragged_tiles_bf16", 1, 2, 77, 129, 64, bf, "prefix", "dense", False),
         ("grad_fully_masked_row_fp32", 2, 4, 128, 192, 64, f32, "full_row", "dense", False),
+        ("grad_fully_masked_row_bf16", 2, 4, 128, 192, 64, bf, "full_row", "dense", False),
+        ("grad_masked_tiles_fp32", 2, 4, 130, 330, 64, f32, "tiles", "dense", False),
+        ("grad_masked_tiles_bf16", 2, 4, 130, 330, 64, bf, "tiles", "dense", False),
         ("grad_head_dim_128_fp32", 1, 4, 130, 257, 128, f32, "random", "dense", False),
+        ("grad_head_dim_128_bf16", 1, 4, 130, 257, 128, bf, "random", "dense", False),
+        ("grad_masked_tiles_head_dim_128_fp32", 2, 4, 130, 330, 128, f32, "tiles", "dense",
+         False),
+        ("grad_qkv_views_ragged_fp32", 2, 3, 200, 200, 64, f32, "random", "qkv", False),
+        ("grad_qkv_views_ragged_bf16", 2, 3, 200, 200, 64, bf, "random", "qkv", False),
     ]
     attn_grad_recs = [attn_grad_case(fa, *c, gen) for c in attn_grad]
+    attn_grad_recs += [attn_grad_case(fa, f"grad_large_scores_head_dim_{D}_fp32", 2, 4, 300, 300, D,
+                                      f32, None, "dense", False, gen, qk_std=2.5) for D in (64, 128)]
     vq = [
         # (name, N, C, timed, kind, time once, count re-scores)
         ("flagship_b8", 4096, 32768, True, "random", False, True),
@@ -912,7 +1002,7 @@ def profile_decode(pipe, ids, noise, warm_s, label):
     log(f"  profile of one warm {label} decode (batch {ids.shape[0]}, 50 steps): device busy "
         f"{total / 1e6:.3f} s of {warm_s:.3f} s wall = {total / 1e6 / warm_s:.3f}; "
         f"{sum(r[1] for r in rows)} device kernels")
-    attn_rows = [r for r in rows if "flash_bf16_kernel" in r[2] or "flash_f32_kernel" in r[2]]
+    attn_rows = [r for r in rows if "flash_bf16_kernel" in r[2] or "flash_tf32_fwd_kernel" in r[2]]
     if attn_rows:
         a_us = sum(r[0] for r in attn_rows)
         log(f"    attention kernel: {a_us / 1e3:.2f} ms ({a_us / total:.3f} of device time) over "
@@ -926,7 +1016,10 @@ def profile_decode(pipe, ids, noise, warm_s, label):
         log(f"    {us / 1e3:9.2f} ms {us / total:6.3f} x{n:<6d} {key[:110]}")
 
 
-KERNEL_NAMES = ("vq_argmax", "flash_sdpa_key_mask", "q8_matmul", "conv3ch_3x3")
+# launch counts, in this order; "flash_sdpa_key_mask" counts every forward
+# launch, "flash_sdpa_key_mask_fp32" the fp32 ones among them
+KERNEL_NAMES = ("vq_argmax", "flash_sdpa_key_mask", "q8_matmul", "conv3ch_3x3",
+                "flash_sdpa_key_mask_fp32", "flash_sdpa_key_mask_backward")
 
 
 def _modules():
@@ -938,12 +1031,15 @@ def _modules():
 
 
 def counts():
-    return tuple(m.launch_count for m in _modules())
+    vk, fa, q8, c3 = _modules()
+    return (vk.launch_count, fa.launch_count, q8.launch_count, c3.launch_count,
+            fa.fp32_launch_count, fa.backward_launch_count)
 
 
 def reset_counts():
     for m in _modules():
         m.launch_count = 0
+    _modules()[1].fp32_launch_count = _modules()[1].backward_launch_count = 0
 
 
 def timed(fn):
@@ -1046,9 +1142,9 @@ def bf16_path(card, do_profile):
         ids_hi[:1], noise=noise1, cfg_scale=2.0, return_latents=True))
     c4 = counts()
 
-    expect = [(1, 0, 0, 0), (2, 0, 0, 0), (3, enc_cfg.depth, 0, 0),
-              (3, enc_cfg.depth + depth * steps, 0, 0),
-              (3, enc_cfg.depth + 3 * depth * steps, 0, 0)]
+    expect = [(1, 0, 0, 0, 0, 0), (2, 0, 0, 0, 0, 0), (3, enc_cfg.depth, 0, 0, 0, 0),
+              (3, enc_cfg.depth + depth * steps, 0, 0, 0, 0),
+              (3, enc_cfg.depth + 3 * depth * steps, 0, 0, 0, 0)]
     if [c1, c1h, c2, c3_, c4] != expect:
         raise RuntimeError(f"launch counts {[c1, c1h, c2, c3_, c4]} differ from the path's {expect}")
     check_ids(ids_hi, B)
@@ -1151,8 +1247,8 @@ def int8_path(card, ref, do_profile):
         ids[:1], noise=noise1, cfg_scale=2.0, return_latents=True))
     c2 = counts()
     # counts accumulate over both calls: cfg 2.0 adds a cond and an uncond pass per step
-    expect = [(0, depth * steps, per_cond * steps, 0),
-              (0, 3 * depth * steps, (2 * per_cond + per_uncond) * steps, 0)]
+    expect = [(0, depth * steps, per_cond * steps, 0, 0, 0),
+              (0, 3 * depth * steps, (2 * per_cond + per_uncond) * steps, 0, 0, 0)]
     if [c1, c2] != expect or (c1[2], c2[2] - c1[2]) != (9550, 14400):
         raise RuntimeError(f"int8 launch counts {[c1, c2]} differ from the path's {expect}")
     check_images(img2, 2)
@@ -1198,7 +1294,7 @@ def renderer_path(card, ref):
     from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_RENDERER_CONFIG
 
     ids = ref["ids"]
-    total = (0, 0, 0, 0)
+    total = (0, 0, 0, 0, 0, 0)
     images = {}
     for dtype in (torch.bfloat16, "int8"):
         pipe = build_pipeline(FLAGSHIP_RENDERER_CONFIG, dtype)
@@ -1211,7 +1307,7 @@ def renderer_path(card, ref):
         reset_counts()
         (img, lat), t_first = timed(lambda: pipe.decoding_with_renderer(ids, return_latents=True))
         c = counts()
-        expect = (0, 2 * depth, (8 * (depth - 1) + 7) if dtype == "int8" else 0, 0)
+        expect = (0, 2 * depth, (8 * (depth - 1) + 7) if dtype == "int8" else 0, 0, 0, 0)
         if c != expect or c[1] != 48 or c[2] not in (0, 191):
             raise RuntimeError(f"renderer {dtype} launch counts {c} differ from {expect}")
         total = tuple(a + b for a, b in zip(total, c))
@@ -1315,7 +1411,7 @@ def zoo_encoder_path(card, label, cfg, images):
     c1 = counts()
     ids_def, t_def = timed(lambda: pipe.encoding(images, precision="default"))
     c2 = counts()
-    expect = [(1, 0, 0, 0), (2, ec.depth if kernel_attn else 0, 0, 0)]
+    expect = [(1, 0, 0, 0, 0, 0), (2, ec.depth if kernel_attn else 0, 0, 0, 0, 0)]
     if [c1, c2] != expect:
         raise RuntimeError(f"{label}: launch counts {[c1, c2]} differ from the path's {expect}")
     for ids in (ids_hi, ids_def):
@@ -1389,7 +1485,7 @@ def variant_decoder_path(card, images, noise2, noise1, do_profile):
     (_, lat1), t_cfg = timed(lambda: pipe.decoding(ids[:1], noise=noise1, cfg_scale=2.0,
                                                    return_latents=True))
     c2 = counts()
-    expect = [(0, depth * steps, 0, 0), (0, 3 * depth * steps, 0, 0)]
+    expect = [(0, depth * steps, 0, 0, 0, 0), (0, 3 * depth * steps, 0, 0, 0, 0)]
     if [c1, c2] != expect:
         raise RuntimeError(f"variant decode launch counts {[c1, c2]} differ from {expect}")
     before = counts()
@@ -1430,9 +1526,9 @@ def variant_decoder_path(card, images, noise2, noise1, do_profile):
         reset_counts()
         v_c, v_u = pair(x, t, ehs, mask)
         c_pair = counts()
-        if c_pair != (0, depth, 0, 0):
+        if c_pair != (0, depth, 0, 0, 0, 0):
             raise RuntimeError(f"mmdit_cfg_batched launch counts {c_pair} differ from "
-                               f"{(0, depth, 0, 0)}")
+                               f"{(0, depth, 0, 0, 0, 0)}")
         s_c = cond(x, t, ehs, mask)
         s_u = mmdit_cfg_inference(m, dcfg, x.to(dd), t, None, mask=torch.zeros_like(mask),
                                   ctx_mods=mods).float()
@@ -1473,9 +1569,9 @@ def variant_decoder_path(card, images, noise2, noise1, do_profile):
     (_, lat8), t8 = timed(lambda: pipe.decoding(ids8, noise=noise2, cfg_scale=1.0,
                                                 return_latents=True))
     c8 = counts()
-    if c8 != (0, depth * steps, per_cond * steps, 0):
+    if c8 != (0, depth * steps, per_cond * steps, 0, 0, 0):
         raise RuntimeError(f"variant int8 launch counts {c8} differ from "
-                           f"{(0, depth * steps, per_cond * steps, 0)}")
+                           f"{(0, depth * steps, per_cond * steps, 0, 0, 0)}")
     before = counts()
     _, lat8_p = pipe.decoding(ids8, noise=noise2, cfg_scale=1.0, kernels="plain",
                               return_latents=True)
@@ -1518,9 +1614,9 @@ def register_decoder_path(card, images, noise1):
     (_, lat), t_first = timed(lambda: pipe.decoding(ids, noise=noise1, cfg_scale=2.0,
                                                     return_latents=True))
     c = counts()
-    if c != (0, 2 * depth * steps, 0, 0):
+    if c != (0, 2 * depth * steps, 0, 0, 0, 0):
         raise RuntimeError(f"register decode launch counts {c} differ from "
-                           f"{(0, 2 * depth * steps, 0, 0)}")
+                           f"{(0, 2 * depth * steps, 0, 0, 0, 0)}")
     before = counts()
     _, lat_p = pipe.decoding(ids, noise=noise1, cfg_scale=2.0, kernels="plain",
                              return_latents=True)
@@ -1568,8 +1664,8 @@ def renderdit_path(card, images):
     reset_counts()
     lat, t_first = timed(render)
     c = counts()
-    if c != (0, depth, 0, 0):
-        raise RuntimeError(f"RenderDiT launch counts {c} differ from {(0, depth, 0, 0)}")
+    if c != (0, depth, 0, 0, 0, 0):
+        raise RuntimeError(f"RenderDiT launch counts {c} differ from {(0, depth, 0, 0, 0, 0)}")
     if tuple(lat.shape) != (8, 32, 32, 16):
         raise RuntimeError(f"RenderDiT latents {tuple(lat.shape)}")
     before = counts()
@@ -1675,8 +1771,8 @@ def multires_encoder_path(card):
     reset_counts()
     out, t_first = timed(run)
     c = counts()
-    if c != (1, 0, 0, 0):
-        raise RuntimeError(f"multires encoder launch counts {c}, expected (1, 0, 0, 0)")
+    if c != (1, 0, 0, 0, 0, 0):
+        raise RuntimeError(f"multires encoder launch counts {c}, expected (1, 0, 0, 0, 0, 0)")
     ids, outs = out[-1], out[1]
     before = counts()
     with routing.kernel_route("plain"):
@@ -1748,7 +1844,7 @@ def multires_mmdit_path(card):
     w16 = warm(lambda: run(torch.bfloat16), 2)
     peak16 = torch.cuda.max_memory_allocated()
     c = counts()
-    if c != (0, 0, 0, 0):
+    if c != (0, 0, 0, 0, 0, 0):
         raise RuntimeError(f"multires MMDiT launch counts {c}: its attention is plain sdpa")
     if tuple(v32.shape) != (B, 32, 32, 16) or v16.dtype != torch.bfloat16:
         raise RuntimeError(f"multires MMDiT: bad output {tuple(v32.shape)} {v16.dtype}")
@@ -1824,9 +1920,9 @@ def multi_tokenizer_path(card):
     (loss, aux), t_first = timed(step)
     c = counts()
     peak = torch.cuda.max_memory_allocated()
-    if c != (0, dec.depth, 0, 0):
-        raise RuntimeError(f"multi-tokenizer loss launch counts {c}, expected "
-                           f"(0, {dec.depth}, 0, 0)")
+    want = (0, dec.depth, 0, 0, dec.depth, dec.depth)
+    if c != want:
+        raise RuntimeError(f"multi-tokenizer loss launch counts {c}, expected {want}")
     hold_loss("multi-tokenizer loss", loss, loss_p)
     hold_grads("multi-tokenizer loss", named, plain)
     for r, st in aux["vq_states"].items():
@@ -1921,7 +2017,7 @@ def dit_ddpm_path(card):
         log(f"sample DiT-XL/2 {loop} ({spec}), cfg 4.0, 2 images (4 rows), fp32: {t1:.3f} s "
             f"({t1 / int(spec.replace('ddim', '')) * 1e3:.1f} ms a step) on {card}")
     c = counts()
-    if c != (0, 0, 0, 0):
+    if c != (0, 0, 0, 0, 0, 0):
         raise RuntimeError(f"DiT launch counts {c}: its attention (head dim 72) is plain")
     del model
     release()
@@ -1973,7 +2069,7 @@ def text_encoders_path(card):
         del model, enc, z, pooled
         release()
     c = counts()
-    if c != (0, 0, 0, 0):
+    if c != (0, 0, 0, 0, 0, 0):
         raise RuntimeError(f"text encoder launch counts {c}: their attention is plain")
     return c
 
@@ -2253,7 +2349,7 @@ def corpus_eval_path(card, loader, paths):
             return [(imgs[i:i + b], np.arange(i, i + b)) for i in range(0, n, b)]
         return common.file_batches(paths[:n], 256, b, loader)
 
-    total = (0, 0, 0, 0)
+    total = (0, 0, 0, 0, 0, 0)
     kept = None
     for label, cfg, (n, b), renderer in (
             ("renderer bf16", FLAGSHIP_RENDERER_CONFIG, EVAL_RENDER, True),
@@ -2419,9 +2515,10 @@ def cut_depth_config(src, dst, depth):
     return dst
 
 
-def run_driver(card, label, fn, expect, steps=None):
+def run_driver(card, label, fn, expect, steps=None, backward=0):
     """Run one driver with every launch count set to 0 just before it; hold
-    the counts (vq_argmax, attention) to ``expect``; print its wall, peak
+    the counts (vq_argmax, attention) to ``expect`` and the attention
+    backward's to ``backward``; print its wall, peak
     memory and, for a trainer, its warm steps/s and the device's busy share
     of its loop. Returns (result, counts)."""
     gc.collect()
@@ -2430,8 +2527,9 @@ def run_driver(card, label, fn, expect, steps=None):
     reset_counts()
     res, t = timed(fn)
     c = counts()
-    if c[:2] != expect or c[2:] != (0, 0):
-        raise RuntimeError(f"{label}: launch counts {c}, expected {expect + (0, 0)}")
+    if c[:2] != expect or c[2:4] != (0, 0) or c[5] != backward:
+        raise RuntimeError(f"{label}: launch counts {c}, expected {expect + (0, 0)} and "
+                           f"{backward} attention backward launches")
     peak = torch.cuda.max_memory_allocated() / 2**30
     timing = res.get("timing") if isinstance(res, dict) else None
     extra = ""
@@ -2440,7 +2538,8 @@ def run_driver(card, label, fn, expect, steps=None):
         extra = (f", {sps:.3f} warm steps/s, device busy {busy:.3f} of the step loop "
                  f"({steps} steps)") if sps is not None else ""
     log(f"  driver {label}: {t:.1f} s wall, peak {peak:.2f} GiB{extra}; launches "
-        f"vq_argmax {c[0]}, attention {c[1]} on {card}")
+        f"vq_argmax {c[0]}, attention {c[1]} ({c[4]} fp32), attention backward {c[5]} on "
+        f"{card}")
     return res, c
 
 
@@ -2552,7 +2651,7 @@ def drivers_phase(card, do_profile=False):
             ["--yml-path", FLAGSHIP_CONFIG, "--steps", str(steps), "--ema-decay", "0.999",
              "--eval-interval", "2", "--eval-steps", str(E), "--eval-batch", str(B),
              "--eval-image-space", "--ckpt-interval", "0", "--ckpt-dir", j("tok_full"),
-             "--metrics-out", j("tok.jsonl")] + lat_args), expect, steps)
+             "--metrics-out", j("tok.jsonl")] + lat_args), expect, steps, backward=steps * D)
         by_path["drivers train_tokenizer"] = c
         res["state"].release()
         del res
@@ -2574,18 +2673,20 @@ def drivers_phase(card, do_profile=False):
         straight, c1 = run_driver(card, "train_tokenizer depth 2, 4 steps straight",
                                   lambda: train_tokenizer.main(
                                       rt + ["--steps", "4", "--ckpt-interval", "0",
-                                            "--ckpt-dir", j("tok_a")]), (0, 4 * d), 4)
+                                            "--ckpt-dir", j("tok_a")]), (0, 4 * d), 4,
+                                   backward=4 * d)
         straight["state"].release()
         first, c2 = run_driver(card, "train_tokenizer depth 2, 2 steps + checkpoint",
                                lambda: train_tokenizer.main(
                                    rt + ["--steps", "2", "--ckpt-interval", "2",
-                                         "--ckpt-dir", j("tok_b")]), (0, 2 * d), 2)
+                                         "--ckpt-dir", j("tok_b")]), (0, 2 * d), 2,
+                               backward=2 * d)
         first["state"].release()
         resumed, c3 = run_driver(card, "train_tokenizer depth 2, resumed at 2 to 4",
                                  lambda: train_tokenizer.main(
                                      rt + ["--steps", "4", "--resume-from-steps", "2",
                                            "--ckpt-interval", "4", "--ckpt-dir", j("tok_b")]),
-                                 (0, 2 * d), 2)
+                                 (0, 2 * d), 2, backward=2 * d)
         by_path["drivers round trip: tokenizer"] = tuple(sum(x) for x in zip(c1, c2, c3))
         a, b_ = straight["final_loss"], resumed["final_loss"]
         if not (math.isfinite(a) and abs(a - b_) <= RESUME_RTOL * abs(a)):
@@ -2668,7 +2769,7 @@ def drivers_phase(card, do_profile=False):
                                   "--latents-file", j("lat.npy"), "--steps", "2",
                                   "--batch-size", str(B), "--log-interval", "1",
                                   "--ckpt-interval", "2", "--ckpt-dir", j("ren")]),
-                             (2, 2 * 2 * d), 2)
+                             (2, 2 * 2 * d), 2, backward=2 * (2 * d - 1))
         by_path["drivers round trip: train_renderer"] = c
         rres["state"].release()
         del rres
@@ -2691,7 +2792,7 @@ def drivers_phase(card, do_profile=False):
             ["--yml-path", FLAGSHIP_RENDERER_CONFIG, "--tokenizer-ckpt", j("tok.pth"),
              "--latents-file", j("lat.npy"), "--steps", "3", "--batch-size", str(B),
              "--log-interval", "1", "--ckpt-interval", "0", "--ckpt-dir", j("ren_full")]),
-            (3, 3 * 2 * rcfg.decoder.depth), 3)
+            (3, 3 * 2 * rcfg.decoder.depth), 3, backward=3 * (2 * rcfg.decoder.depth - 1))
         by_path["drivers train_renderer"] = c
         if not math.isfinite(rres["final_recon_mse"]):
             raise RuntimeError(f"train_renderer: {rres}")
@@ -2749,50 +2850,35 @@ def hold_loss(name, got, want, ref="the plain step"):
 
 def profile_train_step(fn, warm_s, label):
     """Device time of one extra step (a train step, or a sampler step of the
-    zoo): busy share of the warm wall, the attention kernel's forward and
-    the attention backward (the fp32 recompute, under a profiler range)."""
+    zoo): busy share of the warm wall, the attention forward kernels' and
+    the backward kernels' (the dQ pass and the dK / dV pass)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from selftoktokenizer_tpu_torch.ops import flash_attention as fa
-
-    backward = fa.flash_sdpa_key_mask_backward
-
-    def ranged(*a):
-        with record_function("attention_backward"):
-            return backward(*a)
-
-    fa.flash_sdpa_key_mask_backward = ranged
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        fa.flash_sdpa_key_mask_backward = backward
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # kernel rows only: a range (the optimizer's, the backward's) also shows
-    # as a device row spanning its kernels
+    # kernel rows only: a range (the optimizer's) also shows as a device row
+    # spanning its kernels
     rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0
             and not getattr(e, "is_user_annotation", False)]
     total = sum(r[0] for r in rows)
     if total <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    fwd = [r for r in rows if "flash_f32_kernel" in r[2] or "flash_bf16_kernel" in r[2]]
-    # the kernels launched inside the host-side ranges
-    bwd = [e for e in prof.events()
-           if e.name == "attention_backward" and e.device_type == DeviceType.CPU]
-    bwd_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                 for e in bwd)
+    fwd = [r for r in rows if "flash_tf32_fwd_kernel" in r[2] or "flash_bf16_kernel" in r[2]]
+    bwd = [r for r in rows if "flash_bwd_dq_kernel" in r[2] or "flash_bwd_dkdv_kernel" in r[2]]
+    fwd_us, bwd_us = sum(r[0] for r in fwd), sum(r[0] for r in bwd)
     rows.sort(reverse=True)
     log(f"  profile of one warm {label} step: device busy {total / 1e6:.3f} s of {warm_s:.3f} s "
         f"wall = {total / 1e6 / warm_s:.3f}; {sum(r[1] for r in rows)} device kernels; "
-        f"attention forward {sum(r[0] for r in fwd) / 1e3:.2f} ms over {sum(r[1] for r in fwd)} "
-        f"launches ({sum(r[0] for r in fwd) / total:.3f}), attention backward "
-        f"{bwd_us / 1e3:.2f} ms over {len(bwd)} calls ({bwd_us / total:.3f})")
+        f"attention forward {fwd_us / 1e3:.2f} ms over {sum(r[1] for r in fwd)} launches "
+        f"({fwd_us / total:.3f}), attention backward {bwd_us / 1e3:.2f} ms over "
+        f"{sum(r[1] for r in bwd)} kernels ({bwd_us / total:.3f})")
     for us, n, key in rows[:10]:
         log(f"    {us / 1e3:9.2f} ms {us / total:6.3f} x{n:<6d} {key[:110]}")
 
@@ -2858,7 +2944,7 @@ def tokenizer_train_path(card, do_profile):
     del aux_p, z, embed, top2
 
     # the counted steps: every count set to 0 just before each, read just after
-    total = (0, 0, 0, 0)
+    total = (0, 0, 0, 0, 0, 0)
     secs, peaks = [], []
     for step in range(3 + TIMING_REPEATS):
         reset_counts()
@@ -2866,9 +2952,10 @@ def tokenizer_train_path(card, do_profile):
         kw = draws if step == 0 else {"rng": gen}
         (state, logs), t = timed(lambda: tr.train_step(state, tcfg, tc, batch, **kw))
         c = counts()
-        if c != (0, fwd_per_step, 0, 0):
+        want = (0, fwd_per_step, 0, 0, fwd_per_step, tcfg.decoder.depth)
+        if c != want:
             raise RuntimeError(f"tokenizer train step {step + 1}: launch counts {c}, "
-                               f"expected (0, {fwd_per_step}, 0, 0)")
+                               f"expected {want}")
         total = tuple(a + b for a, b in zip(total, c))
         secs.append(t)
         peaks.append(torch.cuda.max_memory_allocated())
@@ -2967,7 +3054,9 @@ def renderer_train_path(card, do_profile, enc_sd, vq_state):
     named = tr._trainable(model)
     log(f"  renderer {sum(p.numel() for _, p in named) / 1e9:.3f} B trainable parameters")
     batch = torch.randn((TRAIN_BATCH, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
-    expect = (1, 2 * tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1), 0, 0)
+    fwd = 2 * tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1)
+    # the last block's context rows feed nothing: their attention gets no backward
+    expect = (1, fwd, 0, 0, fwd, 2 * tcfg.decoder.depth - 1)
 
     before = counts()
     with routing.kernel_route("plain"):
@@ -2978,7 +3067,7 @@ def renderer_train_path(card, do_profile, enc_sd, vq_state):
     plain = [p.grad.detach().to("cpu", copy=True) for p in params]
     loss_p = float(loss_p.detach())
 
-    total = (0, 0, 0, 0)
+    total = (0, 0, 0, 0, 0, 0)
     secs, peaks = [], []
     for step in range(2 + TIMING_REPEATS):
         reset_counts()
@@ -3115,6 +3204,7 @@ def tokenizer_accum_and_dp_paths(card, do_profile):
     tc = tr.TrainConfig()
     state = tr.make_train_state(tok, tcfg, tc)
     per_mb = tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1)
+    depth = tcfg.decoder.depth
 
     # path "tokenizer accum"
     reset_counts()
@@ -3125,7 +3215,7 @@ def tokenizer_accum_and_dp_paths(card, do_profile):
     _hold_against_train_step(
         f"tokenizer accum (batch {B}, {n_micro} microbatches)", state, tcfg, batch, draws,
         lambda: tr.accum_grads(state, tcfg, batch, n_micro, **dict(draws)),
-        (0, n_micro * per_mb, 0, 0))
+        (0, n_micro * per_mb, 0, 0, n_micro * per_mb, n_micro * depth))
     B, n_micro = ACCUM_TIMED
     batch = torch.randn((B, tcfg.latent_size, tcfg.latent_size, 16), generator=gen, device=dev)
     secs, peaks = [], []
@@ -3135,7 +3225,7 @@ def tokenizer_accum_and_dp_paths(card, do_profile):
         (state, logs), t = timed(lambda: tr.train_step_accum(state, tcfg, tc, batch, n_micro,
                                                              rng=gen))
         c = tuple(a - b for a, b in zip(counts(), before))
-        if c != (0, n_micro * per_mb, 0, 0):
+        if c != (0, n_micro * per_mb, 0, 0, n_micro * per_mb, n_micro * depth):
             raise RuntimeError(f"tokenizer accum step {step + 1}: launch counts {c}")
         secs.append(t)
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
@@ -3172,7 +3262,7 @@ def tokenizer_accum_and_dp_paths(card, do_profile):
                 f"tokenizer data-parallel (batch {B}, one rank)", state, tcfg, batch, draws,
                 lambda: tr.accum_grads(state, tcfg, pdist.local_rows(batch), 1,
                                        group=torch.distributed.group.WORLD, **dict(draws)),
-                (0, per_mb, 0, 0))
+                (0, per_mb, 0, 0, per_mb, depth))
             secs, peaks = [], []
             for step in range(2):
                 before = counts()
@@ -3180,7 +3270,7 @@ def tokenizer_accum_and_dp_paths(card, do_profile):
                 (state, logs), t = timed(lambda: tr.dp_train_step(
                     state, tcfg, tc, pdist.local_rows(batch), rng=gen))
                 c = tuple(a - b for a, b in zip(counts(), before))
-                if c != (0, per_mb, 0, 0):
+                if c != (0, per_mb, 0, 0, per_mb, depth):
                     raise RuntimeError(f"dp_train_step {step + 1}: launch counts {c}")
                 secs.append(t)
                 peaks.append(torch.cuda.max_memory_allocated() / 2**30)
@@ -3380,8 +3470,9 @@ def _sharded_steps(name, tcfg, tc, sd0, batch, draws, want, mesh, gen, dev, lead
             vq_ref = {**want, "vq": vq.to("cpu"), "ids": ids.cpu(),
                       "name": "phase A on these outputs"}
         del outs, ids, vq
-    per_step = (0, tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1), 0, 0)
-    total = (0, 0, 0, 0)
+    fwd = tcfg.decoder.depth * (2 if tcfg.decoder.use_checkpoint else 1)
+    per_step = (0, fwd, 0, 0, fwd, tcfg.decoder.depth)
+    total = (0, 0, 0, 0, 0, 0)
     secs, peaks = [], []
     for step in range(SHARDED_STEPS):
         kw = dict(draws) if step == 0 else {"rng": gen}
@@ -3634,24 +3725,45 @@ def main():
         log("phase main path:")
         launches, by_path = main_path_phase(card, args.profile)
 
+    def launches_of(name, c):
+        # the bf16 forward's launches: every forward launch but the fp32 ones
+        if name == "flash_sdpa_key_mask":
+            return c[name] - c["flash_sdpa_key_mask_fp32"]
+        return c[name]
+
     def headline(name, recs, source, replaces, **extra):
         h = recs[0]   # the main path's first shape
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
-                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                "launches": launches_of(name, launches),
+                "launches_by_path": {p: launches_of(name, c) for p, c in by_path.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
                 "shape": h["shape"], **extra, "cases": recs}
 
     src = "selftoktokenizer_tpu_torch/csrc/"
+    fp32_head = next(r for r in attn_recs if r["case"] == "train_joint_fp32_masked")
     kernels = [
         headline("vq_argmax", vq_recs, src + "vq_argmax.cu",
                  "selftoktokenizer_tpu/ops/vq_kernels.py:86", share=vq_recs[0]["share"],
                  rescored_mean=vq_recs[0]["rescored_mean"], rescored_max=vq_recs[0]["rescored_max"]),
-        headline("flash_sdpa_key_mask", attn_recs, src + "flash_attention.cu",
-                 "selftoktokenizer_tpu/ops/flash_attention.py:102", share=attn_recs[0]["share"],
-                 grad_cases=attn_grad_recs),
+        headline("flash_sdpa_key_mask", [r for r in attn_recs if r["dtype"] == "bfloat16"],
+                 src + "flash_attention.cu", "selftoktokenizer_tpu/ops/flash_attention.py:102",
+                 share=attn_recs[0]["share"]),
+        # the fp32 forward: the tokenizer's training shape first
+        headline("flash_sdpa_key_mask_fp32",
+                 sorted((r for r in attn_recs if r["dtype"] == "float32"),
+                        key=lambda r: r["case"] != "train_joint_fp32_masked"),
+                 src + "flash_attention_tf32.cu", "selftoktokenizer_tpu/ops/flash_attention.py:102",
+                 share=fp32_head["share"],
+                 fp32_cuda_core_bound_ms=fp32_head["fp32_cuda_core_bound_ms"],
+                 fp32_cuda_core_share=fp32_head["fp32_cuda_core_share"]),
+        # the backward of the reference's custom VJP (an XLA recompute there)
+        headline("flash_sdpa_key_mask_backward", attn_grad_recs, src + "flash_attention_tf32.cu",
+                 "selftoktokenizer_tpu/ops/flash_attention.py:147",
+                 share=attn_grad_recs[0]["share"],
+                 fp32_cuda_core_bound_ms=attn_grad_recs[0]["fp32_cuda_core_bound_ms"],
+                 fp32_cuda_core_share=attn_grad_recs[0]["fp32_cuda_core_share"]),
         headline("q8_matmul", q8_recs, src + "q8_matmul.cu",
                  "selftoktokenizer_tpu/ops/q8_matmul.py:75",
                  quantize_ms=q8_recs[0]["quantize_ms"]),

@@ -1,10 +1,12 @@
-// Fused softmax attention with an optional per-key mask (forward only).
+// Fused softmax attention with an optional per-key mask: the bf16 forward.
 //
 //   out = softmax(q k^T / sqrt(D) + bias) v,   bias[b, key] = mask ? 0 : -1e30
 //
 // Replaces the Pallas TPU kernel
 // selftoktokenizer_tpu/ops/flash_attention.py::_flash_mha (entered through
-// flash_sdpa_key_mask). The TPU kernel keeps one head's whole K and V in VMEM
+// flash_sdpa_key_mask) for bf16 inputs; the fp32 forward and the backward of
+// both types are csrc/flash_attention_tf32.cu (split TF32 on the tensor
+// cores). The TPU kernel keeps one head's whole K and V in VMEM
 // and softmaxes a [block_q, Lk] tile in one pass; a block on Hopper has
 // 227 KB of shared memory, so here a block takes one query tile of one
 // (batch, head) and walks K/V in tiles with the online softmax (running max,
@@ -12,7 +14,9 @@
 // The mask is read per K tile from [B, Lk] and applied as a finite -1e30
 // added in fp32, so a fully masked row yields the uniform mean over the Lk
 // real keys. Keys past Lk in the last tile get -inf (weight 0) and rows past
-// Lq are not stored, so any Lq and Lk are accepted.
+// Lq are not stored, so any Lq and Lk are accepted. With a statistics
+// pointer the epilogue also writes each row's running max (log2 domain) and
+// sum, fp32 [B, H, Lq] each, for the backward.
 //
 // Bound on an H100: 4*B*H*Lq*Lk*D FLOP against (2*Lq + 2*Lk)*D*B*H*itemsize
 // bytes, and B*H*Lq*Lk exponentials on the special-function units (16 a
@@ -49,9 +53,6 @@
 // product to a quarter took at most 10 % less time on an H100 (PERF.md).
 // What is left is each warpgroup's chain of waits per tile (S, softmax,
 // P V), with three warpgroups an SM to hide it.
-//
-// fp32 (flash_f32_kernel): fp32 FMAs on the CUDA cores throughout, 64-key
-// tiles staged by the block's threads; exact fp32 rules out TF32 wgmma.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,172 +67,6 @@ using namespace hopper;
 
 constexpr float NEG_BIAS = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int F_BM = 64;   // fp32: query rows per block
-constexpr int F_BN = 64;   // fp32: keys per shared tile
-
-// the fp32 kernel's arguments
-struct Params {
-    const void* q; const void* k; const void* v; void* o;
-    const unsigned char* mask;        // [B, Lk] bytes, non-zero = attend; or null
-    int B, H, Lq, Lk;
-    long long q_sb, q_sh, q_sl;       // strides in elements; last dim is dense
-    long long k_sb, k_sh, k_sl;
-    long long v_sb, v_sh, v_sl;
-    long long o_sb, o_sh, o_sl;
-    long long mask_sb;
-    float scale_log2;                 // log2(e) / sqrt(D)
-};
-
-__device__ __forceinline__ void fill_bias(float* bias, const Params& p, int b,
-                                          int k0, int tid) {
-    if (tid < F_BN) {
-        const int key = k0 + tid;
-        float v = -CUDART_INF_F;
-        if (key < p.Lk) {
-            v = 0.f;
-            if (p.mask != nullptr && p.mask[(long long)b * p.mask_sb + key] == 0)
-                v = NEG_BIAS;
-        }
-        bias[tid] = v;
-    }
-}
-
-// ----------------------------------------------------------------- fp32 ----
-
-// rows x D floats from global into shared [rows][LD]; float4 global loads,
-// scalar shared stores (LD may be odd); rows at or past `limit` are zero-filled
-template <int D, int LD, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long sl, int row0, int limit,
-                                              int tid) {
-    constexpr int CH = D / 4;
-    for (int i = tid; i < F_BN * CH; i += THREADS) {
-        const int r = i / CH, c = i % CH;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < limit)
-            val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * sl + c * 4);
-        float* d = dst + r * LD + c * 4;
-        d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(256) flash_f32_kernel(const Params p) {
-    constexpr int THREADS = 256;
-    constexpr int LQ = D + 1;         // odd strides: conflict-free column walks
-    constexpr int LP = F_BN + 1;
-    constexpr int E = D / 16;         // output columns per thread
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* Qs = reinterpret_cast<float*>(smem_raw);   // [F_BM][LQ]
-    float* Ks = Qs + F_BM * LQ;                       // [F_BN][LQ]
-    float* Vs = Ks + F_BN * LQ;                       // [F_BN][D]
-    float* Ps = Vs + F_BN * D;                        // [F_BM][LP]
-    float* bias = Ps + F_BM * LP;                     // [F_BN]
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;           // 16 x 16 threads, 4 x 4 scores each
-    const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-    const int q0 = blockIdx.x * F_BM;
-
-    const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-    load_tile_f32<D, LQ, THREADS>(Qs, qg, p.q_sl, q0, p.Lq, tid);
-
-    float m_run[4], l_run[4], acc[4][E];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        m_run[a] = -CUDART_INF_F; l_run[a] = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[a][e] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < p.Lk; k0 += F_BN) {
-        __syncthreads();              // the previous tile is fully consumed
-        load_tile_f32<D, LQ, THREADS>(Ks, kg, p.k_sl, k0, p.Lk, tid);
-        load_tile_f32<D, D, THREADS>(Vs, vg, p.v_sl, k0, p.Lk, tid);
-        fill_bias(bias, p, b, k0, tid);
-        __syncthreads();
-
-        // scores: rows ty*4 + a, keys tx + 16*c
-        float s[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-            float qa[4], kc[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty * 4 + a) * LQ + d];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) kc[c] = Ks[(tx + 16 * c) * LQ + d];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-        }
-
-        float alpha[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-            float mx = -CUDART_INF_F;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                s[a][c] = s[a][c] * p.scale_log2 + bias[tx + 16 * c];
-                mx = fmaxf(mx, s[a][c]);
-            }
-            // the 16 threads of a row are one half of a warp
-#pragma unroll
-            for (int off = 8; off >= 1; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_run[a], mx);   // finite: the tile holds a real key
-            alpha[a] = exp2f(m_run[a] - m_new);
-            m_run[a] = m_new;
-            float rs = 0.f;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const float pv = exp2f(s[a][c] - m_new);
-                rs += pv;
-                Ps[(ty * 4 + a) * LP + tx + 16 * c] = pv;
-            }
-#pragma unroll
-            for (int off = 8; off >= 1; off >>= 1)
-                rs += __shfl_xor_sync(0xffffffffu, rs, off);
-            l_run[a] = l_run[a] * alpha[a] + rs;
-#pragma unroll
-            for (int e = 0; e < E; ++e) acc[a][e] *= alpha[a];
-        }
-        __syncthreads();
-
-        // O += P V: rows ty*4 + a, columns tx + 16*e
-#pragma unroll 4
-        for (int j = 0; j < F_BN; ++j) {
-            float pa[4], ve[E];
-#pragma unroll
-            for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty * 4 + a) * LP + j];
-#pragma unroll
-            for (int e = 0; e < E; ++e) ve[e] = Vs[j * D + tx + 16 * e];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-                for (int e = 0; e < E; ++e) acc[a][e] = fmaf(pa[a], ve[e], acc[a][e]);
-        }
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        const int row = q0 + ty * 4 + a;
-        if (row < p.Lq) {
-            const float inv = 1.f / l_run[a];
-            float* dst = og + (long long)row * p.o_sl;
-#pragma unroll
-            for (int e = 0; e < E; ++e) dst[tx + 16 * e] = acc[a][e] * inv;
-        }
-    }
-}
 
 // m64n64k16 f32 += bf16 * bf16, A from registers (each warp's 16 rows as the
 // m16n8k16 A fragment), B in shared memory: K-major (TB = 0) or MN-major,
@@ -292,6 +127,8 @@ struct AttnArgs {
     long long mask_sb;
     int H, Lq, Lk;
     float scale_log2;                 // log2(e) / sqrt(D)
+    float* stat_m;                    // [B, H, Lq] each: the rows' max and sum, or null
+    float* stat_l;
 };
 
 // Q as the A fragments of the k16 steps of Q K^T, read once from its
@@ -574,6 +411,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmap_q, const __grid_const
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv[hh] = 1.f / l;
+        const int row = q0 + r_base + 8 * hh;
+        if (a.stat_m != nullptr && t == 0 && row < a.Lq) {
+            const long long at = (static_cast<long long>(b) * a.H + h) * a.Lq + row;
+            a.stat_m[at] = m_run[hh];
+            a.stat_l[at] = l;
+        }
     }
 #pragma unroll
     for (int sd = 0; sd < SUB; ++sd) {
@@ -598,17 +441,6 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmap_q, const __grid_const
 }
 
 // --------------------------------------------------------------- launch ---
-
-template <int D>
-int launch_f32(const Params& p, cudaStream_t stream) {
-    static bool ready[64] = {};
-    const int smem = ((F_BM + F_BN) * (D + 1) + F_BN * D + F_BM * (F_BN + 1) + F_BN) * 4;
-    const int e = set_smem_once(reinterpret_cast<const void*>(flash_f32_kernel<D>), smem, ready);
-    if (e != 0) return e;
-    const dim3 grid((p.Lq + F_BM - 1) / F_BM, p.B * p.H);
-    flash_f32_kernel<D><<<grid, 256, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
 
 // the map of a bf16 [B, H, L, D] tensor (strides in elements, D dense) as
 // four dimensions (D, L, H, B), read or written in boxes of 64 columns x 64 rows
@@ -650,10 +482,12 @@ int launch_bf16(const Bf16Call& c, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements; the last dimension
-// (D, 64 or 128) is dense. mask may be null. Returns a cudaError_t, -1 for
-// arguments the kernels do not take, -2 if cuTensorMapEncodeTiled is not
-// found in libcuda, -1000 - CUresult if it fails.
+// The bf16 forward; dtype must be 0 (bf16: the fp32 forward is
+// csrc/flash_attention_tf32.cu's stk_flash_attention_f32). Strides are in
+// elements; the last dimension (D, 64 or 128) is dense. mask may be null;
+// stat_m / stat_l ([B, H, Lq] fp32 each) may both be null. Returns a
+// cudaError_t, -1 for arguments the kernel does not take, -2 if
+// cuTensorMapEncodeTiled is not found in libcuda, -1000 - CUresult if it fails.
 extern "C" int stk_flash_attention(
         const void* q, const void* k, const void* v, void* o, const void* mask,
         int B, int H, int Lq, int Lk, int D, int dtype,
@@ -661,31 +495,17 @@ extern "C" int stk_flash_attention(
         long long k_sb, long long k_sh, long long k_sl,
         long long v_sb, long long v_sh, long long v_sl,
         long long o_sb, long long o_sh, long long o_sl,
-        long long mask_sb, void* stream) {
-    if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (long long)B * H > 65535)
+        long long mask_sb, void* stat_m, void* stat_l, void* stream) {
+    if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (long long)B * H > 65535 || dtype != 0
+            || ((stat_m == nullptr) != (stat_l == nullptr)))
         return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-    if (dtype == 0) {
-        const Bf16Call c = {q, k, v, o, B, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
-                            o_sb, o_sh, o_sl,
-                            {static_cast<const unsigned char*>(mask), mask_sb, H, Lq, Lk, scale_log2}};
-        if (D == 64) return launch_bf16<64>(c, s);
-        if (D == 128) return launch_bf16<128>(c, s);
-        return -1;
-    }
-    if (dtype != 1) return -1;
-    Params p;
-    p.q = q; p.k = k; p.v = v; p.o = o;
-    p.mask = static_cast<const unsigned char*>(mask);
-    p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk;
-    p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-    p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-    p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-    p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-    p.mask_sb = mask_sb;
-    p.scale_log2 = scale_log2;
-    if (D == 64) return launch_f32<64>(p, s);
-    if (D == 128) return launch_f32<128>(p, s);
+    const Bf16Call c = {q, k, v, o, B, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+                        o_sb, o_sh, o_sl,
+                        {static_cast<const unsigned char*>(mask), mask_sb, H, Lq, Lk, scale_log2,
+                         static_cast<float*>(stat_m), static_cast<float*>(stat_l)}};
+    if (D == 64) return launch_bf16<64>(c, s);
+    if (D == 128) return launch_bf16<128>(c, s);
     return -1;
 }

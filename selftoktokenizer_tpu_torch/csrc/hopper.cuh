@@ -149,16 +149,33 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the CUDA driver library, found with dlsym:
-// nothing links against libcuda
-inline EncodeTiled encode_tiled() {
-    static EncodeTiled fn = []() -> EncodeTiled {
-        void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-        if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-        return h == nullptr ? nullptr
-                            : reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+
+// a function of the CUDA driver library, found with dlsym: nothing links
+// against libcuda
+inline void* driver_fn(const char* name) {
+    static void* h = []() -> void* {
+        void* p = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+        return p != nullptr ? p : dlopen("libcuda.so.1", RTLD_NOW);
     }();
+    return h == nullptr ? nullptr : dlsym(h, name);
+}
+
+inline EncodeTiled encode_tiled() {
+    static const auto fn = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
     return fn;
+}
+
+// Makes the current device's primary context current on a thread that has
+// none: the encoder is a driver call and needs one, which a thread that has
+// made no runtime call yet (autograd's backward thread) lacks. A thread that
+// has one pays one cuCtxGetCurrent.
+inline bool ensure_context() {
+    static const auto get = reinterpret_cast<CtxGetCurrent>(driver_fn("cuCtxGetCurrent"));
+    CUcontext ctx = nullptr;
+    if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return true;
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
 }
 
 // The map of a tensor of `rank` (<= 4) dimensions, innermost first, dense in
@@ -187,6 +204,7 @@ inline int tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, con
     }
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return -2;
+    if (!ensure_context()) return -1000 - static_cast<int>(CUDA_ERROR_INVALID_CONTEXT);
     cuuint64_t d[4], s[3];
     cuuint32_t b[4], e[4];
     for (int i = 0; i < rank; ++i) {

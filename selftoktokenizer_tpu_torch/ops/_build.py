@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-KERNEL_SOURCES = ("vq_argmax", "flash_attention", "q8_matmul", "conv3ch")
+KERNEL_SOURCES = ("vq_argmax", "flash_attention", "flash_attention_tf32", "q8_matmul", "conv3ch")
 
 # the host library's flags and libraries, as the reference's native/Makefile
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared"]
