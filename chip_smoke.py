@@ -49,17 +49,29 @@ widths, 5 steps at batch 8 in bf16, a held-out split) and
 ``encode_corpus`` with its checkpoint; ``train_tokenizer`` at full depth
 (batch 4, fp32 with TF32 off, an EMA copy, 4 steps, 8-step eval decodes
 of the held-out rows at steps 0, 2 and 4 with the image-space eval),
-its metrics read back through ``tools/summarize_convergence.py``; the file
-round trip with MMDiT_XL cut to depth 2 at width 1536 (4 steps straight
-against 2 + a checkpoint + a resume, the final loss within 1e-4 relative;
-``convert_ckpt export`` and ``export --ema``; ``SelftokPipeline`` from the
-export, every leaf bit-equal to the state's and the encode's ids equal to
-the state's encoder's under the 1e-6 margin rule; ``certify_tiers``;
+its metrics read back through the port's
+``tools/summarize_convergence.py``; the file round trip with MMDiT_XL cut
+to depth 2 at width 1536 (4 steps straight against 2 + a checkpoint + a
+resume, the final loss within 1e-4 relative; ``convert_ckpt export`` and
+``export --ema``; ``SelftokPipeline`` from the export, every leaf
+bit-equal to the state's and the encode's ids equal to the state's
+encoder's under the 1e-6 margin rule; ``certify_tiers``;
 ``train_renderer`` from the export; ``demo_e2e`` over the three
 checkpoints); ``train_renderer`` at full depth (3 steps at batch 4, fp32).
 It prints each driver's wall, peak memory, warm steps/s and the device's
-busy share of its step loop. Each path runs with every launch count set to
-0 just before it and read just after.
+busy share of its step loop. Phase "tools" (last) runs the measurement
+tools (``selftoktokenizer_tpu_torch/tools/measure_k1024.py`` and the nine
+``bench_*.py``) in process at short settings, each JSON line held to its
+documented keys, and holds the paths they drive: the flagship at 512 px
+(encode at batch 8, 'highest' and 'default', under the top-2 margin rules;
+the 50-step bf16 decode at batch 2 within 5e-2 of the plain route), the
+K=1024 encode at batch 32, 'highest' (one ``vq_argmax`` launch over 32,768
+rows, ids under the 1e-6 rule), the rematerialised train step at depth 24 x
+1536, batch 8, against the same step without remat (the train tolerances;
+48 forward and 24 backward attention launches), the three render loops'
+images equal, ``bench_scaling`` over a one-rank NCCL group and
+``bench_int8``'s 191 ``q8_matmul`` launches a cond call. Each path runs
+with every launch count set to 0 just before it and read just after.
 
 Run with no arguments on a machine with one NVIDIA GPU (sm_90a) and the
 CUDA toolkit:
@@ -71,9 +83,10 @@ last line of its standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before the card line is one
 JSON object ``{"kernels": [...]}`` with each kernel's error, times and bound.
 ``--only kernels`` stops after the kernel phase, ``--only train``,
-``--only zoo``, ``--only families``, ``--only corpus`` and ``--only
-drivers`` run that phase alone (no kernel line, no final line); ``--ptxas`` prints the
-compiler's register and shared-memory report; ``--profile`` adds a
+``--only zoo``, ``--only families``, ``--only corpus``, ``--only
+drivers``, ``--only sharded`` and ``--only tools`` run that phase alone
+(no kernel line, no final line); ``--ptxas`` prints the compiler's
+register and shared-memory report; ``--profile`` adds a
 torch.profiler pass over one warm bf16 decode, one warm int8 decode, one
 extra tokenizer and renderer train step and the zoo's two forms of a CFG
 sampler step;
@@ -93,12 +106,14 @@ import time
 
 import torch
 
+from selftoktokenizer_tpu_torch.utils import peaks
+
 # published peaks of one H100 SXM (dense): the roofline the bounds are stated against
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS = peaks.BF16_FLOPS
+PEAK_FP32_FLOPS = peaks.FP32_FLOPS
+PEAK_TF32_FLOPS = peaks.TF32_FLOPS
+PEAK_INT8_OPS = peaks.INT8_OPS
+PEAK_BYTES = peaks.BYTES
 
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # q8_matmul equals its plain version bit for bit, except fp32 with a bias:
@@ -826,6 +841,9 @@ def kernel_phase():
         ("cfg_batched_2b_bf16", 4, 24, 768, 768, 64, bf, "cfg_batched", True),
         ("renderdit_bf16", 8, 24, 768, 768, 64, bf, "renderdit", True),
         ("encoder_query_k1024_bf16", 8, 8, 1024, 1280, 64, bf, None, True),
+        # the 512 px encode's query attention at 'default': 512 queries over
+        # 1024 image + 512 query keys
+        ("encoder_query_512px_bf16", 8, 8, 512, 1536, 64, bf, None, True),
         # the multi-resolution tokenizer's loss at batch 4, fp32: 2 x 512
         # interleaved context keys (a prefix active) and 256 x keys
         ("multi_tokenizer_joint_fp32_masked", 4, 24, 1280, 1280, 64, f32, "prefix", True),
@@ -896,6 +914,8 @@ def kernel_phase():
         # the zoo at batch 8: Enc-L/8 (K = 24 groups of 16 patches), K = 1024
         ("vit_enc_l8_b8", 3072, 32768, True, "random", False, True),
         ("k1024_b8", 8192, 32768, True, "random", False, True),
+        # measure_k1024's encode: K = 1024 at batch 32
+        ("k1024_b32", 32768, 32768, True, "random", False, True),
         ("ragged", 1000, 5001, False, "random", False, False),
         ("norms_0.1_to_10", 4096, 32768, False, "norms", False, True),
         ("near_tie", 4096, 32768, False, "near_tie", False, True),
@@ -2544,21 +2564,15 @@ def run_driver(card, label, fn, expect, steps=None, backward=0):
 
 
 def summarize_metrics(path):
-    """The root tool tools/summarize_convergence.py's main over a metrics
-    file (numpy only; loaded from its file)."""
+    """``tools/summarize_convergence.py``'s main over a metrics file: its text."""
     import contextlib
-    import importlib.util
     import io
-    import os
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "summarize_convergence", os.path.join(here, "tools", "summarize_convergence.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    from selftoktokenizer_tpu_torch.tools import summarize_convergence
+
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        mod.main(path)
+        summarize_convergence.main(path)
     return buf.getvalue()
 
 
@@ -3638,6 +3652,298 @@ def sharded_phase(card, do_profile=False):
     return paths
 
 
+# ----------------------------------------------------------------- tools ---
+
+# the keys each measurement tool documents for its JSON line
+TOOL_KEYS = {
+    "measure_k1024": {"ts", "build_s", "platform", "card", "k", "batch", "vq_rows",
+                      "rates_img_per_s", "median", "note"},
+    "bench_encode_serving": {"batch", "card", "encode_images_per_s", "encoder_stage_images_per_s",
+                             "id_agreement_serving_vs_plain"},
+    "bench_encoder_bisect": {"shapes", "prec", "card", "rows", "full_ms",
+                             "full_trunk_images_per_s", "calibration", "proxy"},
+    "bench_flash": {"metric", "dtype", "iters", "card", "rows", "block_q_sweep"},
+    "bench_decode512": {"data_size", "batch", "steps", "card", "segments", "joint_lengths",
+                        "variants", "sweeps"},
+    "bench_int8": {"metric", "bf16_img_per_s", "int8_img_per_s", "speedup",
+                   "psnr_int8_vs_bf16_db", "q8_matmul_launches_per_int8_decode", "steps", "batch",
+                   "platform", "card"},
+    "bench_render_overlap": {"batch", "iters", "card", "loops", "max_abs_diff_vs_fused",
+                             "images_equal"},
+    "bench_train": {"platform", "card", "depth", "hidden", "batch", "remat", "peak",
+                    "train_flops_per_step_T", "flash_step_s", "flash_images_per_s",
+                    "flash_tflops", "flash_share_of_peak", "flash_loss"},
+    "bench_scaling": {"metric", "results", "world", "batch_per_chip", "backend", "card"},
+    "bench_loader": {"n", "size", "batch", "native_available", "native_unavailable_reason",
+                     "native_loader_img_per_s", "native_single_img_per_s", "pil_img_per_s",
+                     "tar_loader_img_per_s", "tar_decoder", "tar_decoded"},
+}
+TOOLS_512 = 512                   # px of the 512 px encode and decode
+TOOLS_REMAT = (24, 8)             # bench_train's decoder depth (width 64 x 24 = 1536), batch
+
+
+def run_tool(name, argv):
+    """The tool's main in process, counted from 0; its JSON line held to
+    its documented keys. Returns (line, counts)."""
+    import importlib
+
+    mod = importlib.import_module(f"selftoktokenizer_tpu_torch.tools.{name}")
+    release()
+    reset_counts()
+    line, t = timed(lambda: mod.main(argv))
+    c = counts()
+    missing = TOOL_KEYS[name] - set(line)
+    if missing:
+        raise RuntimeError(f"{name}: its JSON line lacks {sorted(missing)}")
+    log(f"  tool {name} {' '.join(argv)}: {t:.1f} s, launches "
+        f"{dict(zip(KERNEL_NAMES, c))}")
+    release()
+    return line, c
+
+
+def check_ids_rule(name, ids, ids_p, margins, margin):
+    """ids from the kernels may differ from the plain run's only where the
+    top-2 margin is below ``margin``."""
+    diff = ids != ids_p
+    bad = int((diff & (margins >= margin)).sum())
+    if bad:
+        raise RuntimeError(f"{name}: {bad} ids differ from the plain run's outside margin {margin}")
+    return 1.0 - diff.float().mean().item()
+
+
+def encode_decode_512_path(card):
+    """The flagship at 512 px: the encode at batch 8 at 'highest' and
+    'default', then the 50-step bf16 decode of two of those id rows at
+    batch 2, each against the same calls with the plain versions forced."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG
+    from selftoktokenizer_tpu_torch.tools import common
+
+    px = TOOLS_512
+    pipe = common.seeded_pipeline(FLAGSHIP_CONFIG, "cuda", datasize=px, steps=50,
+                                  decode_dtype=torch.bfloat16, encode_precision="highest")
+    check_decoder_widths(pipe)
+    depth = pipe.tcfg.decoder.depth
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    images = torch.rand((8, px, px, 3), generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn((2, px // 8, px // 8, 16), generator=gen, device="cuda")
+    pipe.encoding(images[:1])                     # warm-up outside the counted run
+    reset_counts()
+    ids_hi, t_hi = timed(lambda: pipe.encoding(images))
+    c1 = counts()
+    ids_def, t_def = timed(lambda: pipe.encoding(images, precision="default"))
+    c2 = counts()
+    (img, lat), t_dec = timed(lambda: pipe.decoding(ids_hi[:2], noise=noise, cfg_scale=1.0,
+                                                    return_latents=True))
+    c3_ = counts()
+    n_q = pipe.tcfg.encoder.depth
+    expect = [(1, 0, 0, 0, 0, 0), (2, n_q, 0, 0, 0, 0), (2, n_q + depth * 50, 0, 0, 0, 0)]
+    if [c1, c2, c3_] != expect:
+        raise RuntimeError(f"512 px: launch counts {[c1, c2, c3_]} differ from {expect}")
+    for ids in (ids_hi, ids_def):
+        if tuple(ids.shape) != (8, 512) or int(ids.min()) < 0 or int(ids.max()) >= 32768:
+            raise RuntimeError(f"512 px: bad ids {tuple(ids.shape)}")
+    if tuple(img.shape) != (2, px, px, 3) or not torch.isfinite(img).all() \
+            or float(img.min()) < 0 or float(img.max()) > 1:
+        raise RuntimeError(f"512 px: bad images {tuple(img.shape)}")
+    segs = pipe._decode_segments()
+    before = counts()
+    ids_hi_p = pipe.encoding(images, kernels="plain")
+    ids_def_p = pipe.encoding(images, precision="default", kernels="plain")
+    _, margins = pipe.encoding_margins(images, kernels="plain")
+    _, lat_p = pipe.decoding(ids_hi[:2], noise=noise, cfg_scale=1.0, kernels="plain",
+                             return_latents=True)
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    check_ids_rule("512 px 'highest'", ids_hi, ids_hi_p, margins, VQ_MARGIN)
+    agree = check_ids_rule("512 px 'default'", ids_def, ids_def_p, margins, DEFAULT_TIER_MARGIN)
+    if agree < 0.5:
+        raise RuntimeError(f"512 px 'default': only {agree:.3f} of ids agree with the plain path")
+    if not torch.isfinite(lat).all():
+        raise RuntimeError("512 px: non-finite latents")
+    e = (lat - lat_p).abs().max().item()
+    if e > LATENT_TOL:
+        raise RuntimeError(f"512 px decode latents differ from the plain path by {e} > {LATENT_TOL}")
+    log(f"  512 px: decode buckets (start, end, context length) {segs}; kernels vs forced plain: "
+        f"'highest' ids differing {int((ids_hi != ids_hi_p).sum())}/{ids_hi.numel()}, 'default' "
+        f"agreeing {agree:.4f}, latents max abs diff {e:.4g} (latent abs max "
+        f"{lat.abs().max().item():.3g})")
+    log(f"encode 512 px 'highest': {8 / t_hi:.2f} images/s (batch 8, first call), 'default': "
+        f"{8 / t_def:.2f}; decode bf16 512 px, 50 steps, cfg 1.0: {t_dec / 2:.3f} s/image "
+        f"(batch 2, first call) on {card}")
+    del pipe
+    release()
+    return c3_
+
+
+def k1024_path(card):
+    """The K=1024 encode of measure_k1024 at batch 32, 'highest': one
+    vq_argmax launch over 32 x 1024 = 32,768 rows, its ids against the
+    plain run's by the 1e-6 margin rule."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG
+    from selftoktokenizer_tpu_torch.tools import common
+    from selftoktokenizer_tpu_torch.tools.measure_k1024 import k1024_config
+
+    pipe = common.seeded_pipeline(k1024_config(FLAGSHIP_CONFIG), "cuda", datasize=256,
+                                  encode_only=True, encode_precision="highest")
+    images = common.uniform_images(32, 256, "cuda")
+    pipe.encoding(images[:1])                     # warm-up outside the counted run
+    reset_counts()
+    ids, t = timed(lambda: pipe.encoding(images))
+    c = counts()
+    # one launch gave every id: it ran over all 32 x 1024 rows at once
+    if c != (1, 0, 0, 0, 0, 0) or tuple(ids.shape) != (32, 1024):
+        raise RuntimeError(f"K=1024: launch counts {c}, ids {tuple(ids.shape)}")
+    before = counts()
+    ids_p = pipe.encoding(images, kernels="plain")
+    _, margins = pipe.encoding_margins(images, kernels="plain")
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise RuntimeError("kernels='plain' launched a kernel")
+    check_ids_rule("K=1024 batch 32 'highest'", ids, ids_p, margins, VQ_MARGIN)
+    log(f"  K=1024 batch 32 'highest': vq_argmax over N = {ids.numel()} rows in one launch, ids "
+        f"differing from the plain run {int((ids != ids_p).sum())} (smallest margin "
+        f"{margins.min().item():.3g}); {32 / t:.2f} images/s (first call) on {card}")
+    del pipe
+    release()
+    return c
+
+
+def remat_train_path(card):
+    """bench_train's config at the flagship width (depth 24 x 1536), both
+    trunks rematerialised, batch 8, fp32 with TF32 off: the first step held
+    against the same step without remat (same weights and draws), its
+    attention forward (48: each block's again in the backward) and backward
+    (24) launches counted."""
+    from selftoktokenizer_tpu_torch.core.config import FLAGSHIP_CONFIG, load_config
+    from selftoktokenizer_tpu_torch.models import vq as vq_mod
+    from selftoktokenizer_tpu_torch.models.tokenizer import tokenizer_config_from_params
+    from selftoktokenizer_tpu_torch.tools import bench_train
+    from selftoktokenizer_tpu_torch.train import trainer as tr
+
+    depth, B = TOOLS_REMAT
+    dev = "cuda"
+    tcfg = bench_train.remat_config(
+        tokenizer_config_from_params(dict(load_config(FLAGSHIP_CONFIG).tokenizer.params)), depth)
+    check_train_widths(tcfg, renderer=False)
+    plain_cfg = bench_train.without_remat(tcfg)
+    tc = tr.TrainConfig(dit_lr=1e-5, token_lr=5e-5)
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state = bench_train.seeded_state(tcfg, tc, dev)
+        named = tr._trainable(state.model)
+        batch = bench_train.latents(tcfg, B, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(29)
+        K, C = tcfg.k, tcfg.encoder.codebook_size
+        draws = {"t": torch.rand((B,), generator=gen, device=dev),
+                 "noise": torch.randn(batch.shape, generator=gen, device=dev),
+                 "drop_ids": torch.arange(B, device=dev) % 4 == 1,
+                 "kmeans_idx": vq_mod.kmeans_init_indices(B * K, C, gen),
+                 "react_uniforms": torch.rand((C,), generator=gen, device=dev)}
+        # the same step without remat: its gradients to the host
+        loss_n, _, params = tr.tokenizer_grads(state, plain_cfg, batch, **draws)
+        plain = [p.grad.detach().to("cpu", copy=True) for p in params]
+        loss_n = float(loss_n.detach())
+        peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (state, logs), t = timed(lambda: tr.train_step(state, tcfg, tc, batch, **draws))
+        c = counts()
+        want = (0, 2 * depth, 0, 0, 2 * depth, depth)
+        if c != want:
+            raise RuntimeError(f"remat train step: launch counts {c}, expected {want}")
+        loss = float(logs["loss"])
+        hold_loss("remat train step 1", loss, loss_n, "the step without remat")
+        hold_grads("remat train step 1", named, plain, "the step without remat")
+        log(f"train tokenizer, both trunks rematerialised, depth {depth} x "
+            f"{tcfg.decoder.hidden_size}, batch {B}, fp32 (TF32 off): step 1 {t:.3f} s, loss "
+            f"{loss:.6f} (without remat {loss_n:.6f}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({peak_plain:.2f} GiB for "
+            f"the gradients without remat), attention launches {c[1]} forward, {c[5]} backward "
+            f"on {card}")
+        state.release()
+        del state, named, params, plain
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    release()
+    return c
+
+
+def tools_phase(card, do_profile=False):
+    """The measurement tools in process at short settings, each path counted
+    from 0, and the holds of the paths they drive: the 512 px encode and
+    decode, the K=1024 batch-32 encode, the rematerialised train step, the
+    render loops, the data-parallel encode over one NCCL rank and the int8
+    decode's q8_matmul launches."""
+    import os
+    import tempfile
+
+    by_path = {}
+    t_phase = time.time()
+    by_path["512 px encode + bf16 decode"] = encode_decode_512_path(card)
+    by_path["K=1024 batch 32 encode"] = k1024_path(card)
+    by_path["remat train step, depth 24, batch 8"] = remat_train_path(card)
+
+    line, c = run_tool("measure_k1024", ["--reps", "1", "--iters", "2"])
+    by_path["tool measure_k1024"] = c
+    if c[0] != 3 or line["vq_rows"] != 32768:
+        raise RuntimeError(f"measure_k1024: {c} launches, {line['vq_rows']} rows")
+    line, c = run_tool("bench_encode_serving", ["--iters", "2"])
+    by_path["tool bench_encode_serving"] = c
+    if c[0] < 1 or c[1] < 1:
+        raise RuntimeError(f"bench_encode_serving launched {c}")
+    _, c = run_tool("bench_encoder_bisect", ["--iters", "2"])
+    by_path["tool bench_encoder_bisect"] = c
+    for dt in ("bfloat16", "float32"):
+        line, c = run_tool("bench_flash", ["--iters", "5", "--dtype", dt])
+        by_path[f"tool bench_flash {dt}"] = c
+        if c[1] != 7 * len(line["rows"]) or c[4] != (c[1] if dt == "float32" else 0):
+            raise RuntimeError(f"bench_flash {dt}: launch counts {c}")
+    line, c = run_tool("bench_decode512", ["--iters", "1"])
+    by_path["tool bench_decode512"] = c
+    v = line["variants"]
+    if [r["attention_launches_per_decode"] for r in v.values()] != [24 * 50, 24 * 50, 0] \
+            or v["serving_attention_false"]["max_abs_diff_vs_first"] != 0 \
+            or v["plain_attention"]["max_abs_diff_vs_first"] > 1e-1:
+        raise RuntimeError(f"bench_decode512: {v}")
+    line, c = run_tool("bench_int8", ["--steps", "50", "--batch", "4", "--iters", "1"])
+    by_path["tool bench_int8"] = c
+    if line["q8_matmul_launches_per_int8_decode"] != 191 * 50 or c[2] != 2 * 191 * 50:
+        raise RuntimeError(f"bench_int8: q8_matmul launches "
+                           f"{line['q8_matmul_launches_per_int8_decode']} a decode, {c[2]} in all; "
+                           f"expected 191 a cond call")
+    line, c = run_tool("bench_render_overlap", ["--iters", "4"])
+    by_path["tool bench_render_overlap"] = c
+    if line["images_equal"] is not True:
+        raise RuntimeError(f"bench_render_overlap: the loops' images differ "
+                           f"{line['max_abs_diff_vs_fused']}")
+    depth, B = TOOLS_REMAT
+    line, c = run_tool("bench_train", ["--depth", str(depth), "--batch-size", str(B),
+                                       "--iters", "1"])
+    by_path["tool bench_train"] = c
+    if line["hidden"] != 1536 or not math.isfinite(line["flash_loss"]) \
+            or c[5] != 2 * depth or c[4] != 2 * 2 * depth:
+        raise RuntimeError(f"bench_train: {line}, launches {c}")
+    with tempfile.TemporaryDirectory() as d:
+        line, c = run_tool("bench_scaling", ["--init-method", f"file://{os.path.join(d, 'store')}",
+                                             "--batch-per-chip", "16", "--iters", "2"])
+    by_path["tool bench_scaling N=1"] = c
+    if line["backend"] != "nccl" or line["world"] != 1 or c[0] != 3:
+        raise RuntimeError(f"bench_scaling: {line}, launches {c}")
+    line, c = run_tool("bench_loader", ["--n", "64"])
+    by_path["tool bench_loader"] = c
+    if not line["native_available"] and not (line["native_unavailable_reason"]
+                                             and line["native_loader_img_per_s"] is None
+                                             and line["tar_decoder"] == "pil"):
+        raise RuntimeError(f"bench_loader: an unavailable C++ loader's rows: {line}")
+    log(f"  tools phase: {time.time() - t_phase:.1f} s on {card}")
+    return by_path
+
+
 def main_path_phase(card, do_profile=False):
     by_path = {}
     by_path["encode + bf16 decode"], ref = bf16_path(card, do_profile)
@@ -3657,6 +3963,8 @@ def main_path_phase(card, do_profile=False):
     by_path.update(train_phase(card, do_profile))
     log("phase sharded:")
     by_path.update(sharded_phase(card, do_profile))
+    log("phase tools:")
+    by_path.update(tools_phase(card, do_profile))
     launches = {n: sum(c[i] for c in by_path.values()) for i, n in enumerate(KERNEL_NAMES)}
     by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in by_path.items()}
     log(f"  launches on the main paths: {json.dumps(by_path)}")
@@ -3668,10 +3976,11 @@ def main_path_phase(card, do_profile=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--only", choices=["kernels", "train", "zoo", "families", "corpus",
-                                        "drivers", "sharded"],
+                                        "drivers", "sharded", "tools"],
                     default=None,
                     help="stop after the kernel phase, or run the train, the zoo, the "
-                         "families, the corpus, the drivers or the sharded phase alone")
+                         "families, the corpus, the drivers, the sharded or the tools "
+                         "phase alone")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's per-kernel resource report")
     ap.add_argument("--profile", action="store_true",
@@ -3699,11 +4008,11 @@ def main():
     _build.build_all(verbose=args.ptxas)
     log(f"phase build: {len(_build.KERNEL_SOURCES)} kernels built in {time.time() - t0:.1f} s")
 
-    if args.only in ("train", "zoo", "families", "corpus", "drivers", "sharded"):
+    if args.only in ("train", "zoo", "families", "corpus", "drivers", "sharded", "tools"):
         log(f"phase {args.only}:")
         phase = {"train": train_phase, "zoo": zoo_phase, "families": families_phase,
                  "corpus": corpus_phase, "drivers": drivers_phase,
-                 "sharded": sharded_phase}[args.only]
+                 "sharded": sharded_phase, "tools": tools_phase}[args.only]
         paths = phase(card, args.profile)
         by_path = {p: dict(zip(KERNEL_NAMES, c)) for p, c in paths.items()}
         log(f"  launches on the {args.only} paths: {json.dumps(by_path)}")

@@ -31,7 +31,7 @@ LIBS = ("-ljpeg", "-lpng")
 
 _lib = None
 _lib_lock = threading.Lock()
-_available = None
+_reason = None          # '' once the headers were found
 
 
 def native_available():
@@ -39,14 +39,26 @@ def native_available():
     ``jpeglib.h`` and ``png.h`` (one preprocessor pass over the two
     includes, read once a process). Decided from what is installed; the
     build itself raises if it fails."""
-    global _available
-    if _available is None:
+    return unavailable_reason() is None
+
+
+def unavailable_reason():
+    """None where the loader can be built here, else why not: no C++
+    compiler, or the preprocessor's first error over the two includes."""
+    global _reason
+    if _reason is None:
         exe = _build.cxx()
-        _available = exe is not None and subprocess.run(
-            [exe, "-E", "-x", "c++", "-", "-o", os.devnull],
-            input="#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n",
-            capture_output=True, text=True).returncode == 0
-    return _available
+        if exe is None:
+            _reason = "no C++ compiler ($CXX or g++) on PATH"
+        else:
+            out = subprocess.run(
+                [exe, "-E", "-x", "c++", "-", "-o", os.devnull],
+                input="#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n",
+                capture_output=True, text=True)
+            errors = [ln.strip() for ln in out.stderr.splitlines() if "error" in ln]
+            _reason = "" if out.returncode == 0 else (
+                (errors or out.stderr.strip().splitlines() or ["the preprocessor failed"])[0])
+    return _reason or None
 
 
 def _bind(lib):

@@ -7,11 +7,13 @@ The modules own the weights under the reference checkpoint's names
 pre-only context branch, ...); the functions, named as in the reference, do
 the work. The joint attention of every block goes through
 ``ops.attention.serving_attention`` -> the CUDA kernel, for bf16 and fp32
-alike; the renderer's full mask is two key masks stacked by row, so it takes
-two kernel calls per block (``renderer_apply``). Every linear goes through
-``ops.linear.linear_apply``, so a ``Q8Linear`` (int8 decode) takes the int8
-kernel. The context stream's per-position adaLN table depends only on the
-weights and is computed once (``precompute_context_mods``).
+alike (plain ``sdpa_key_mask`` with ``use_flash_attention=False``, the
+reference's XLA route); the renderer's full mask is two key masks stacked
+by row, so it takes two kernel calls per block (``renderer_apply``).
+Every linear goes through ``ops.linear.linear_apply``, so a ``Q8Linear``
+(int8 decode) takes the int8 kernel. The context stream's per-position
+adaLN table depends only on the weights and is computed once
+(``precompute_context_mods``).
 
 Training: ``mmdit_apply`` takes the CFG condition drop (``drop_ids``) and a
 conditioning vector ``y``, and with ``context_see_xt=False`` takes the
@@ -59,7 +61,7 @@ from torch import nn
 from selftoktokenizer_tpu_torch.models.encoder import (
     LayerNormWeight, Mlp, PatchEmbed, RMSNormWeight, TimestepEmbedder, _merge_heads,
     mlp_apply, patch_embed_apply, timestep_embedder_apply)
-from selftoktokenizer_tpu_torch.ops.attention import sdpa, serving_attention
+from selftoktokenizer_tpu_torch.ops.attention import sdpa, sdpa_key_mask, serving_attention
 from selftoktokenizer_tpu_torch.ops.linear import (
     linear, linear_apply, modulate, unpatchify)
 from selftoktokenizer_tpu_torch.ops.norms import layer_norm, rms_norm
@@ -91,8 +93,12 @@ class MMDiTConfig:
     renderer: bool = False
     input_size: int = 32
     repeat_mask_token: bool = False
-    # kept so configs compare equal with the reference's; the port always
-    # takes the kernel route (ops.attention.serving_attention)
+    # the joint attention's route: the kernel router
+    # (ops.attention.serving_attention), or with use_flash_attention=False
+    # plain sdpa_key_mask, the reference's XLA attention. serving_attention
+    # is kept so configs compare equal with the reference's: there it picks
+    # bf16-score XLA attention or its kernel by key length on the bf16
+    # route; the port takes the kernel at every length either way
     use_flash_attention: bool = True
     serving_attention: bool = True
     # recompute each joint block's activations in the backward
@@ -342,6 +348,15 @@ def dismantled_post_attention(p: DismantledBlock, attn_out, inter):
     return x
 
 
+def _attention(cfg: MMDiTConfig, q, k, v, key_mask=None):
+    """The decoder's attention: through the kernel router, or with
+    ``cfg.use_flash_attention`` off through plain ``sdpa_key_mask`` (its
+    autograd backward in training)."""
+    if cfg.use_flash_attention:
+        return serving_attention(q, k, v, key_mask)
+    return sdpa_key_mask(q, k, v, key_mask)
+
+
 def joint_block_apply(bp: JointBlock, cfg: MMDiTConfig, context, x, c,
                       pos_mods=None, key_mask=None, last=False, ctx_key_mask=None):
     """One JointBlock: separate pre-attention per stream, one concatenated
@@ -361,12 +376,12 @@ def joint_block_apply(bp: JointBlock, cfg: MMDiTConfig, context, x, c,
     v = torch.cat([ctx_qkv[2], x_qkv[2]], dim=2)
     if ctx_key_mask is None:
         q = torch.cat([ctx_qkv[0], x_qkv[0]], dim=2)
-        attn = _merge_heads(serving_attention(q, k, v, key_mask))
+        attn = _merge_heads(_attention(cfg, q, k, v, key_mask))
         Lc = context.shape[1]
         ctx_attn, x_attn = attn[:, :Lc], attn[:, Lc:]
     else:
-        ctx_attn = _merge_heads(serving_attention(*ctx_qkv, ctx_key_mask))
-        x_attn = _merge_heads(serving_attention(x_qkv[0], k, v, key_mask))
+        ctx_attn = _merge_heads(_attention(cfg, *ctx_qkv, ctx_key_mask))
+        x_attn = _merge_heads(_attention(cfg, x_qkv[0], k, v, key_mask))
 
     new_ctx = None if last else dismantled_post_attention(
         bp.context_block, ctx_attn, ctx_inter)
@@ -618,7 +633,7 @@ def mmdit_uncond_xonly(params: MMDiT, cfg: MMDiTConfig, x, t):
     c = _uncond_c(params, cfg, t, xt.dtype)
     for bp in params.joint_blocks:
         qkv, inter = dismantled_pre_attention(bp.x_block, cfg, xt, c)
-        xt = dismantled_post_attention(bp.x_block, _merge_heads(serving_attention(*qkv)),
+        xt = dismantled_post_attention(bp.x_block, _merge_heads(_attention(cfg, *qkv)),
                                        inter)
     out = final_layer_apply(params.final_layer, xt, c)
     return unpatchify(out, cfg.patch_size, cfg.out_ch, gh, gw)

@@ -182,3 +182,68 @@ def metrics_writer(path):
 
 def log(msg):
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# what the measurement tools share
+# ---------------------------------------------------------------------------
+
+def card_line(device):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, for a
+    CUDA device (its name alone where nvidia-smi cannot be run); 'cpu' on
+    the CPU. Every number a tool prints stands beside it."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                              f"--id={dev.index or 0}"], capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0].strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return torch.cuda.get_device_name(dev)
+
+
+def seeded_pipeline(cfg, device, **kw):
+    """A ``SelftokPipeline`` of ``cfg`` (a config or a yml path) on
+    ``device`` with the port's seeded weights (seed 0) and non-zero adaLN
+    and biases (``zero_init_std=0.02``): the reference's zero adaLN gates
+    switch every attention off, which would hide the attention from what a
+    tool measures. kw: the pipeline's other arguments."""
+    from selftoktokenizer_tpu_torch.core.config import load_config
+    from selftoktokenizer_tpu_torch.pipeline import SelftokPipeline
+
+    if isinstance(cfg, str):
+        cfg = load_config(cfg)
+    return SelftokPipeline(cfg, device=device, seed=0, zero_init_std=0.02, **kw)
+
+
+def uniform_images(batch, size, device, seed=0):
+    """[batch, size, size, 3] float32 in [-1, 1] from numpy's default_rng(seed),
+    as the reference's tools draw them, on ``device``."""
+    import torch
+
+    a = np.random.default_rng(seed).uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+def random_ids(batch, k, vocab, device, seed=0):
+    """[batch, k] int32 ids from numpy's default_rng(seed).integers(0, vocab)."""
+    import torch
+
+    a = np.random.default_rng(seed).integers(0, vocab, (batch, k)).astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def emit(line):
+    """Print the tool's JSON line and return it."""
+    import json
+
+    print(json.dumps(line), flush=True)
+    return line

@@ -13,8 +13,8 @@ the image path, or ``shard/member`` of a shard) and, with
 path in use). One process per card under ``torchrun --nproc_per_node N``:
 each rank takes its ``process_slice`` of the sorted image list (of the
 shard list for shards; ``--limit`` is global and split over the ranks) and
-writes ``<out>.part<rank>.npz``, which ``tools/merge_token_parts.py`` of the
-reference merges. The image loader is the C++ one where it can be built
+writes ``<out>.part<rank>.npz``, which ``tools/merge_token_parts.py``
+merges. The image loader is the C++ one where it can be built
 here, else PIL (``tools/common.py``); the JSON line says which ran.
 """
 

@@ -40,6 +40,16 @@ def test_no_forbidden_import(path):
             assert not _bad(n), f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {n}"
 
 
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_module_loaded_from_a_file_path(path):
+    """Nothing of the port, nor chip_smoke.py, loads a module from a file
+    (the reference's root tools/ were reached that way): every import goes
+    through the port's own package."""
+    with open(path) as f:
+        src = f.read()
+    assert "spec_from_file_location" not in src, os.path.relpath(path, ROOT)
+
+
 def test_port_has_every_module_of_the_slice():
     want = ["core/config.py", "core/convert.py", "ops/norms.py", "ops/linear.py",
             "ops/posembed.py", "ops/_build.py", "ops/vq_kernels.py",
@@ -65,7 +75,13 @@ def test_port_has_every_module_of_the_slice():
             "tools/train_renderer.py", "tools/certify_tiers.py", "tools/demo_e2e.py",
             # sharded training and the last utilities
             "parallel/tp.py", "parallel/dryrun.py", "utils/guards.py", "utils/profiling.py",
-            "utils/benchutil.py", "utils/flops.py"]
+            "utils/benchutil.py", "utils/flops.py",
+            # the measurement tools, and the card's peaks they divide by
+            "utils/peaks.py", "tools/measure_k1024.py", "tools/bench_encode_serving.py",
+            "tools/bench_encoder_bisect.py", "tools/bench_flash.py", "tools/bench_decode512.py",
+            "tools/bench_int8.py", "tools/bench_render_overlap.py", "tools/bench_train.py",
+            "tools/bench_scaling.py", "tools/bench_loader.py", "tools/merge_token_parts.py",
+            "tools/summarize_convergence.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing, missing
 
